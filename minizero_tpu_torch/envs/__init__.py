@@ -1,0 +1,228 @@
+"""Environment registry (port of ``minizero_tpu/envs/__init__.py``).
+
+``env_defaults`` keeps the per-env config defaults of every game family, so
+``config.default_config`` gives the same configs as the JAX package. Of the
+envs themselves only Go is ported; ``make_env`` raises ``NotImplementedError``
+for the others (ROADMAP.md, queue A, lists them).
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Any, Callable, Dict, Tuple
+
+from minizero_tpu_torch.envs.base import Env
+
+# name -> (module, class, ctor kwargs from cfg, per-env config defaults);
+# module None = not ported yet
+_TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]] = {
+    "tictactoe": (
+        None,
+        "TicTacToeEnv",
+        lambda cfg: {},
+        {"env_board_size": 3, "actor_dirichlet_noise_alpha": 0.11},
+    ),
+    "othello": (
+        None,
+        "OthelloEnv",
+        lambda cfg: {"board_size": cfg.env_board_size or 8},
+        {"env_board_size": 8, "actor_dirichlet_noise_alpha": 0.12},
+    ),
+    "go": (
+        "minizero_tpu_torch.envs.go",
+        "GoEnv",
+        lambda cfg: {"board_size": cfg.env_board_size or 9, "komi": cfg.env_go_komi},
+        {"env_board_size": 9, "env_go_komi": 7.5, "actor_dirichlet_noise_alpha": 0.03},
+    ),
+    "nogo": (
+        None,
+        "NoGoEnv",
+        lambda cfg: {"board_size": cfg.env_board_size or 9},
+        {"env_board_size": 9, "actor_dirichlet_noise_alpha": 0.03},
+    ),
+    "gomoku": (
+        None,
+        "GomokuEnv",
+        lambda cfg: {
+            "board_size": cfg.env_board_size or 15,
+            "exactly_five": cfg.env_gomoku_exactly_five_stones,
+            "rule": cfg.env_gomoku_rule,
+        },
+        {"env_board_size": 15, "actor_dirichlet_noise_alpha": 0.03},
+    ),
+    "outer_open_gomoku": (
+        None,
+        "GomokuEnv",
+        lambda cfg: {
+            "board_size": cfg.env_board_size or 15,
+            "exactly_five": cfg.env_gomoku_exactly_five_stones,
+            "rule": "outer_open",
+        },
+        {"env_board_size": 15, "actor_dirichlet_noise_alpha": 0.03},
+    ),
+    "hex": (
+        None,
+        "HexEnv",
+        lambda cfg: {"board_size": cfg.env_board_size or 11, "use_swap_rule": cfg.env_hex_use_swap_rule},
+        {"env_board_size": 11, "actor_dirichlet_noise_alpha": 0.03},
+    ),
+    "connect6": (
+        None,
+        "Connect6Env",
+        lambda cfg: {"board_size": cfg.env_board_size or 19},
+        {"env_board_size": 19, "actor_dirichlet_noise_alpha": 0.03},
+    ),
+    "killallgo": (
+        None,
+        "KillAllGoEnv",
+        lambda cfg: {"board_size": cfg.env_board_size or 7, "use_seki": cfg.env_killallgo_use_seki,
+                     "ko_rule": cfg.env_killallgo_ko_rule},
+        {"env_board_size": 7, "actor_dirichlet_noise_alpha": 0.03},
+    ),
+    "clobber": (
+        None,
+        "ClobberEnv",
+        lambda cfg: {"board_size": cfg.env_board_size or 10},
+        {"env_board_size": 10, "actor_dirichlet_noise_alpha": 0.03},
+    ),
+    "breakthrough": (
+        None,
+        "BreakthroughEnv",
+        lambda cfg: {"board_size": cfg.env_board_size or 8},
+        {"env_board_size": 8, "actor_dirichlet_noise_alpha": 0.03},
+    ),
+    "havannah": (
+        None,
+        "HavannahEnv",
+        lambda cfg: {
+            "board_size": cfg.env_board_size or 8,
+            "use_swap_rule": cfg.env_havannah_use_swap_rule,
+        },
+        {"env_board_size": 8, "actor_dirichlet_noise_alpha": 0.03},
+    ),
+    "conhex": (
+        None,
+        "ConHexEnv",
+        lambda cfg: {"use_swap_rule": cfg.env_conhex_use_swap_rule},
+        {"env_board_size": 9, "actor_dirichlet_noise_alpha": 0.03},
+    ),
+    "amazons": (
+        None,
+        "AmazonsEnv",
+        lambda cfg: {"board_size": cfg.env_board_size or 10},
+        {"env_board_size": 10, "actor_dirichlet_noise_alpha": 0.03},
+    ),
+    "santorini": (
+        None,
+        "SantoriniEnv",
+        lambda cfg: {},
+        {"env_board_size": 5, "actor_dirichlet_noise_alpha": 0.03},
+    ),
+    "surakarta": (
+        None,
+        "SurakartaEnv",
+        lambda cfg: {
+            "board_size": cfg.env_board_size or 6,
+            "no_capture_plies": cfg.env_surakarta_no_capture_plies,
+        },
+        {"env_board_size": 6, "actor_dirichlet_noise_alpha": 0.03},
+    ),
+    "linesofaction": (
+        None,
+        "LinesOfActionEnv",
+        lambda cfg: {"board_size": cfg.env_board_size or 8},
+        {"env_board_size": 8, "actor_dirichlet_noise_alpha": 0.03},
+    ),
+    "puzzle2048": (
+        None,
+        "Puzzle2048Env",
+        lambda cfg: {},
+        # the reference trains 2048 with gumbel muzero + n-step returns
+        {
+            "env_board_size": 4,
+            "actor_mcts_value_rescale": True,
+            "actor_mcts_reward_discount": 1.0,
+            "actor_select_action_by_count": True,
+            "actor_use_random_rotation_features": False,
+            "learner_n_step_return": 10,
+            "nn_type_name": "muzero",
+        },
+    ),
+    "tetrisblockpuzzle": (
+        None,
+        "TetrisBlockPuzzleEnv",
+        lambda cfg: {
+            "num_holding_block": cfg.env_tetris_block_puzzle_num_holding_block,
+            "num_preview": cfg.env_tetris_block_puzzle_num_preview_holding_block,
+        },
+        {
+            "env_board_size": 8,
+            "actor_mcts_value_rescale": True,
+            "actor_select_action_by_count": True,
+            "actor_use_random_rotation_features": False,
+            "learner_n_step_return": 10,
+            "nn_type_name": "muzero",
+        },
+    ),
+    "rubiks": (
+        None,
+        "RubiksEnv",
+        lambda cfg: {
+            "board_size": cfg.env_board_size or 3,
+            "scramble": cfg.env_rubiks_scramble_rotate,
+        },
+        {"env_board_size": 3, "actor_dirichlet_noise_alpha": 0.03},
+    ),
+    "atari": (
+        None,
+        "AtariEnv",
+        lambda cfg: {"game_name": cfg.env_atari_name, "rom_dir": cfg.env_atari_rom_dir},
+        # reference atari.h:86-92 setUpEnv overrides
+        {
+            "actor_num_simulation": 50,
+            "actor_mcts_value_rescale": True,
+            "actor_mcts_reward_discount": 0.997,
+            "actor_mcts_init_q_average": True,
+            "actor_select_action_softmax_temperature_decay": True,
+            "actor_use_random_rotation_features": False,
+            "zero_actor_intermediate_sequence_length": 200,
+            "zero_actor_record_observations": True,
+            "learner_n_step_return": 10,
+            "learner_use_per": True,
+            "nn_type_name": "muzero",
+        },
+    ),
+    "dotsandboxes": (
+        None,
+        "DotsAndBoxesEnv",
+        lambda cfg: {"board_size": cfg.env_board_size or 9},
+        # setUpEnv: board 9 (dotsandboxes.h:77); AlphaZero-only like the
+        # reference (getActionFeatures throws, dotsandboxes.cpp:327-330)
+        {"env_board_size": 9},
+    ),
+}
+
+
+def env_defaults(name: str) -> Dict[str, Any]:
+    if name not in _TABLE:
+        raise KeyError(f"unknown env {name!r}; known: {sorted(_TABLE)}")
+    return dict(_TABLE[name][3])
+
+
+def make_env(cfg) -> Env:
+    """Build the env named by ``cfg.env_name``."""
+    name = cfg.env_name
+    if name not in _TABLE:
+        raise KeyError(f"unknown env {name!r}; known: {sorted(_TABLE)}")
+    module_name, class_name, kwargs_fn, _ = _TABLE[name]
+    if module_name is None:
+        raise NotImplementedError(
+            f"env {name!r} is not ported to minizero_tpu_torch yet "
+            "(see ROADMAP.md, queue A)")
+    module = importlib.import_module(module_name)
+    return getattr(module, class_name)(**kwargs_fn(cfg))
+
+
+def available_envs():
+    """Envs that are ported."""
+    return sorted(name for name, row in _TABLE.items() if row[0] is not None)

@@ -1,0 +1,340 @@
+"""Self-play engine: batched env + MCTS + network on one device (port of
+``minizero_tpu/selfplay/engine.py``, AlphaZero path on the fused tree step).
+
+B independent games advance in lock-step: one MCTS simulation for all games
+per network forward, ``num_simulations + 1`` forwards per move (reference
+ActorGroup, ``minizero/actor/actor_group.cpp``). Each simulation picks the
+selected parent's state, steps the env, evaluates the leaf, then runs ONE
+fused tree step (``ops/tree_kernel.py``): the CUDA kernel on the card, its
+plain PyTorch version on the CPU.
+
+Per move the engine returns what the reference records per move
+(``actor/base_actor.cpp:59-66``): the search policy P, the root mean value V,
+the env reward R, plus the action, the resign signal and the pre-move feature
+planes. ``move_scan`` plays several moves with the finished-game bookkeeping
+(resign gating, the max-move cap, slot resets) of the JAX scan, as a Python
+loop over moves.
+
+Ported so far: AlphaZero on board games with ``max_nodes < 48`` (the JAX
+engine's v1-kernel domain, e.g. Gumbel n=16). Still to port (ROADMAP.md): the
+large-N loop on kernel B2, the think-batch loop, the timed console search,
+MuZero.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from minizero_tpu_torch import resolve_device
+from minizero_tpu_torch.config import Config
+from minizero_tpu_torch.envs.base import Env, map_state, select_states
+from minizero_tpu_torch.ops.tree_kernel import fused_tree_step, supports_fused_tree_step
+from minizero_tpu_torch.search import gumbel as gz
+from minizero_tpu_torch.search import mcts
+from minizero_tpu_torch.search.mcts import SearchSpec, Tree
+from minizero_tpu_torch.utils.bitpack import pack_planes
+from minizero_tpu_torch.utils.transforms import from_discrete_value
+
+
+def search_spec_from_config(cfg: Config, env_spec, eval_mode: bool = False,
+                            think_batch: int = 1) -> SearchSpec:
+    """Build the static search spec (eval mode disables exploration noise,
+    reference ``README.md:203`` eval recipe)."""
+    return SearchSpec(
+        think_batch=max(1, think_batch),
+        action_size=env_spec.action_size,
+        num_simulations=cfg.actor_num_simulation,
+        puct_base=cfg.actor_mcts_puct_base,
+        puct_init=cfg.actor_mcts_puct_init,
+        discount=cfg.actor_mcts_reward_discount,
+        value_rescale=cfg.actor_mcts_value_rescale,
+        init_q_average=cfg.actor_mcts_init_q_average,
+        flip_player2_value=(cfg.actor_mcts_value_flipping_player == "W" and env_spec.num_players == 2),
+        use_dirichlet_noise=cfg.actor_use_dirichlet_noise and not eval_mode,
+        dirichlet_alpha=cfg.actor_dirichlet_noise_alpha,
+        dirichlet_epsilon=cfg.actor_dirichlet_noise_epsilon,
+        use_gumbel_noise=cfg.actor_use_gumbel_noise and not eval_mode,
+        use_gumbel=cfg.actor_use_gumbel,
+        gumbel_sample_size=cfg.actor_gumbel_sample_size,
+        gumbel_sigma_visit_c=cfg.actor_gumbel_sigma_visit_c,
+        gumbel_sigma_scale_c=cfg.actor_gumbel_sigma_scale_c,
+        select_by_count=cfg.actor_select_action_by_count or eval_mode,
+    )
+
+
+class MoveOutput(NamedTuple):
+    """Per-move results for a batch of games (device tensors)."""
+
+    action: torch.Tensor  # i32[B]
+    turn: torch.Tensor  # i32[B] — player who makes this move
+    policy_target: torch.Tensor  # f32[B, A] — P tag
+    root_value: torch.Tensor  # f32[B] — V tag (root mean)
+    reward: torch.Tensor  # f32[B] — R tag (env reward after the move)
+    resign: torch.Tensor  # bool[B] — search proposes resignation
+    features: torch.Tensor  # u8[B, H, W, C'] — pre-move planes (bit-packed
+    # 8-per-byte for binary_features envs, utils/bitpack.py)
+    states: Any  # stepped env states
+    done: torch.Tensor  # bool[B] — stepped state is terminal
+    eval_score: torch.Tensor  # f32[B] — eval score of stepped state
+    resign_score: torch.Tensor  # f32[B] — eval score if current player resigns
+
+
+class ScanMoves(NamedTuple):
+    """Stacked per-move outputs of ``move_scan`` ([M, B, ...] tensors).
+
+    ``resigned``/``ended`` record the finish decisions so a collector can
+    replay them: a ``resigned`` move is NOT recorded (reference
+    actor_group.cpp:121-122); an ``ended`` move is recorded and then the game
+    finalises with ``eval_score``."""
+
+    action: torch.Tensor  # i32[M, B]
+    turn: torch.Tensor  # i32[M, B]
+    policy_target: torch.Tensor  # f16[M, B, A] (record storage precision)
+    root_value: torch.Tensor  # f32[M, B]
+    reward: torch.Tensor  # f32[M, B]
+    resign: torch.Tensor  # bool[M, B] — raw search proposal
+    features: torch.Tensor  # u8[M, B, H, W, C]
+    done: torch.Tensor  # bool[M, B]
+    eval_score: torch.Tensor  # f32[M, B]
+    resign_score: torch.Tensor  # f32[M, B]
+    resigned: torch.Tensor  # bool[M, B] — finished by resignation this move
+    ended: torch.Tensor  # bool[M, B] — finished by termination this move
+
+
+class SelfPlayEngine:
+    """Batched self-play on one device.
+
+    ``network`` is an AlphaZero ``nn.Module`` (``models/factory.py``); the
+    engine moves it to ``device`` and evaluates it in ``torch.bfloat16``
+    (``use_bf16``, the JAX engine's default) or float32 — tree statistics
+    stay float32. ``device`` defaults to CUDA and raises when there is no
+    card; the CPU is used only when asked for. Random draws (root noise,
+    feature rotations, action sampling, resign gating) come from
+    ``generator`` where a call passes one, else from the engine's own,
+    seeded with ``seed``."""
+
+    def __init__(self, env: Env, cfg: Config, network: torch.nn.Module,
+                 eval_mode: bool = False, use_bf16: bool = True, device=None,
+                 seed: int = 0):
+        self.env = env
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.network = network.to(self.device).eval()
+        self.spec = search_spec_from_config(cfg, env.spec, eval_mode=eval_mode)
+        if type(env).reward is not Env.reward:
+            raise NotImplementedError("envs with in-tree rewards are not ported yet (ROADMAP.md)")
+        if not supports_fused_tree_step(self.spec) or self.spec.max_nodes >= 48:
+            raise NotImplementedError(
+                "large-N AlphaZero (max_nodes >= 48) runs on tree kernel B2 in the JAX "
+                "package, which is not ported yet (ROADMAP.md, queue B)")
+        self.use_rotation = cfg.actor_use_random_rotation_features and env.num_rotations() > 1
+        self.compute_dtype = torch.bfloat16 if use_bf16 else torch.float32
+        self._infer_net = (copy.deepcopy(self.network).to(self.compute_dtype)
+                           if use_bf16 else self.network)
+        self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        # the per-simulation tree transition; a caller may wrap it (e.g. to
+        # hold the kernel against its plain version) as long as the contract
+        # of ops.tree_kernel.fused_tree_step is kept
+        self.tree_step = fused_tree_step
+
+    # ------------------------------------------------------------- env batch
+    def init_batch(self, batch_size: int, generator: Optional[torch.Generator] = None):
+        return self.env.init_random(batch_size, generator or self.generator, device=self.device)
+
+    def reset_slots(self, states, mask: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """Fresh games in the slots where ``mask`` (bool[B]) is set."""
+        fresh = self.env.init_random(mask.shape[0], generator or self.generator, device=self.device)
+        return select_states(mask, fresh, states)
+
+    # ------------------------------------------------------------- inference
+    def _sync_inference_net(self) -> None:
+        """The bf16 copy follows the float32 weights (the JAX engine casts
+        the variables at every move)."""
+        if self._infer_net is not self.network:
+            self._infer_net.load_state_dict(self.network.state_dict())
+
+    def _forward_features(self, feats: torch.Tensor, generator: torch.Generator):
+        """AlphaZero net forward with optional random feature rotation
+        (reference zero_actor.cpp:54-57, 222-223)."""
+        if self.use_rotation:
+            rots = torch.randint(0, self.env.num_rotations(), (feats.shape[0],),
+                                 generator=generator, device=feats.device)
+            feats = self.env.rotate_features_batch(feats, rots)
+        out = self._infer_net(feats.to(self.compute_dtype))
+        policy = out["policy"].float()
+        logits = out["policy_logit"].float()
+        if self.use_rotation:
+            policy = self.env.rotate_policy_back_batch(policy, rots)
+            logits = self.env.rotate_policy_back_batch(logits, rots)
+        return policy, logits, self._scalar_value(out)
+
+    def _scalar_value(self, out) -> torch.Tensor:
+        if self.env.spec.discrete_value_size > 1:
+            return from_discrete_value(out["value"].float())
+        return out["value"][:, 0].float()
+
+    # ---------------------------------------------------------------- search
+    def _leaf_scores(self, leaf_states, leaf_terminal: torch.Tensor) -> torch.Tensor:
+        """Terminal-leaf outcomes, f32[B]; zeros on non-terminal games. The
+        score is computed only when some leaf is terminal."""
+        if not bool(leaf_terminal.any()):
+            return torch.zeros(leaf_terminal.shape, dtype=torch.float32, device=leaf_terminal.device)
+        return torch.where(leaf_terminal, self.env.eval_score(leaf_states), 0.0)
+
+    def _az_root_trees(self, feats, legal, turns, generator) -> Tree:
+        """Root eval + tree init + root expansion/backup/noise (reference
+        root handling in ZeroActor::afterNNEvaluation + addNoiseToNodeChildren)."""
+        spec = self.spec
+        batch = feats.shape[0]
+        dev = feats.device
+        policy, logits, value = self._forward_features(feats, generator)
+        trees = mcts.init_tree(spec, turns.to(torch.int32))
+        zeros_i = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        trees = mcts.expand_node(
+            spec, trees, 0, torch.full((batch,), -1, dtype=torch.int32, device=dev), zeros_i,
+            turns, policy, logits, legal, torch.zeros((batch,), dtype=torch.bool, device=dev))
+        trees = mcts.backup(spec, trees, zeros_i, value,
+                            torch.zeros((batch,), dtype=torch.float32, device=dev))
+        trees = mcts.add_root_noise(spec, trees, generator=generator)
+        if spec.use_gumbel:
+            trees = gz.init_candidates(spec, trees)
+        return trees
+
+    def _kernel_phase0(self, trees: Tree):
+        """Phase-0 (selection only) tree step on the freshly expanded root."""
+        spec = self.spec
+        batch = trees.visits.shape[0]
+        dev = trees.visits.device
+        zeros_f = torch.zeros((batch, spec.action_size), dtype=torch.float32, device=dev)
+        zeros_b = torch.zeros((batch, spec.action_size), dtype=torch.bool, device=dev)
+        sel0 = mcts.empty_selection(spec, batch, dev)
+        return self.tree_step(
+            spec, trees, sel0, zeros_f, zeros_f, zeros_b,
+            torch.zeros((batch,), dtype=torch.bool, device=dev),
+            torch.zeros((batch,), dtype=torch.float32, device=dev),
+            torch.ones((batch,), dtype=torch.int32, device=dev), 0, 0)
+
+    def _kernel_sim_loop(self, trees: Tree, root_states, generator) -> Tree:
+        """Per simulation: the selected parent's state, one env step, the
+        leaf's evaluation, then ONE fused tree step. Node states live in
+        ``[B, N, ...]`` buffers beside the tree (the JAX tree's embedding)."""
+        spec = self.spec
+        batch = trees.visits.shape[0]
+        rows = torch.arange(batch, device=trees.visits.device)
+        trees, sel = self._kernel_phase0(trees)
+
+        def alloc(x):
+            buf = torch.zeros((batch, spec.max_nodes) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+            buf[:, 0] = x
+            return buf
+
+        nodes = map_state(alloc, root_states)
+        for s in range(1, spec.num_simulations + 1):
+            parent = sel.parent.long()
+            parent_states = map_state(lambda buf: buf[rows, parent], nodes)
+            leaf_states = self.env.step(parent_states, sel.action)
+            leaf_terminal = self.env.is_terminal(leaf_states)
+            policy, logits, net_value = self._forward_features(
+                self.env.features(leaf_states), generator)
+            value = torch.where(leaf_terminal, self._leaf_scores(leaf_states, leaf_terminal), net_value)
+            trees, sel = self.tree_step(
+                spec, trees, sel, policy, logits, self.env.legal_mask(leaf_states),
+                leaf_terminal, value, self.env.turn(leaf_states).to(torch.int32), s, 1)
+            # node s exists only where this simulation created it, so the
+            # unconditional store is safe
+            for f in dataclasses.fields(nodes):
+                getattr(nodes, f.name)[:, s] = getattr(leaf_states, f.name)
+        return trees
+
+    def _decide(self, trees: Tree, temperature: float, generator):
+        spec = self.spec
+        if spec.use_gumbel:
+            if spec.select_by_count:
+                action = gz.decide_action(spec, trees)
+            else:
+                action = mcts.select_action_by_softmax_count(spec, trees, temperature, generator)
+            policy_target = gz.improved_policy_target(spec, trees)
+        else:
+            if spec.select_by_count:
+                action = mcts.select_action_by_max_count(trees)
+            else:
+                action = mcts.select_action_by_softmax_count(spec, trees, temperature, generator)
+            policy_target = mcts.mcts_policy_target(trees)
+        resign = mcts.is_resign(spec, trees, action, self.cfg.actor_resign_threshold)
+        return action, policy_target, trees.mean[:, 0], resign
+
+    @torch.no_grad()
+    def move(self, states, temperature: float = 1.0,
+             generator: Optional[torch.Generator] = None) -> MoveOutput:
+        """Search every game and play the chosen action."""
+        env = self.env
+        gen = generator or self.generator
+        turns = env.turn(states)
+        feats = env.features(states)
+        if env.spec.binary_features:
+            # 8 planes per byte for the record stream (utils/bitpack.py)
+            features_u8 = pack_planes(feats)
+        else:
+            features_u8 = feats.to(torch.uint8)
+        self._sync_inference_net()
+        trees = self._az_root_trees(feats, env.legal_mask(states), turns, gen)
+        trees = self._kernel_sim_loop(trees, states, gen)
+        action, policy_target, root_value, resign = self._decide(trees, temperature, gen)
+        stepped = env.step(states, action)
+        return MoveOutput(
+            action=action,
+            turn=turns.to(torch.int32),
+            policy_target=policy_target,
+            root_value=root_value,
+            reward=env.reward(stepped),
+            resign=resign,
+            features=features_u8,
+            states=stepped,
+            done=env.is_terminal(stepped),
+            eval_score=env.eval_score(stepped),
+            resign_score=env.resign_eval_score(states),
+        )
+
+    # ------------------------------------------------------------ multi-move
+    @torch.no_grad()
+    def move_scan(self, states, temperature: float = 1.0, num_moves: int = 8,
+                  enable_resign: Optional[torch.Tensor] = None,
+                  moves_since_reset: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None):
+        """Advance every game ``num_moves`` moves: move -> finish decision ->
+        slot reset. Returns ``(ScanMoves, states, enable_resign,
+        moves_since_reset)``; thread the last two back in across calls."""
+        gen = generator or self.generator
+        batch = self.env.turn(states).shape[0]
+        dev = self.device
+        disable_ratio = float(self.cfg.zero_disable_resign_ratio)
+        max_moves = int(max(self.env.spec.max_game_length, 1) * 2)
+        enable = (torch.ones((batch,), dtype=torch.bool, device=dev)
+                  if enable_resign is None else enable_resign.to(dev))
+        msr = (torch.zeros((batch,), dtype=torch.int32, device=dev)
+               if moves_since_reset is None else moves_since_reset.to(dev, torch.int32))
+        rows = []
+        for _ in range(num_moves):
+            out = self.move(states, temperature, gen)
+            # resign requires a prior recorded move (collector contract);
+            # resign takes precedence over done
+            resigned = out.resign & enable & (msr > 0)
+            ended = (out.done | (msr + 1 >= max_moves)) & ~resigned
+            reset = resigned | ended
+            states = self.reset_slots(out.states, reset, gen)
+            fresh_enable = torch.rand((batch,), generator=gen, device=dev) >= disable_ratio
+            enable = torch.where(reset, fresh_enable, enable)
+            msr = torch.where(reset, torch.zeros_like(msr), msr + 1)
+            rows.append(ScanMoves(
+                action=out.action, turn=out.turn,
+                policy_target=out.policy_target.to(torch.float16),
+                root_value=out.root_value, reward=out.reward, resign=out.resign,
+                features=out.features, done=out.done, eval_score=out.eval_score,
+                resign_score=out.resign_score, resigned=resigned, ended=ended,
+            ))
+        stacked = ScanMoves(*[torch.stack(field) for field in zip(*rows)])
+        return stacked, states, enable, msr
