@@ -1,23 +1,29 @@
 """Self-play engine: batched env + MCTS + network on one device (port of
-``minizero_tpu/selfplay/engine.py``, AlphaZero path on the fused tree step).
+``minizero_tpu/selfplay/engine.py``, the AlphaZero kernel paths).
 
 B independent games advance in lock-step: one MCTS simulation for all games
 per network forward, ``num_simulations + 1`` forwards per move (reference
 ActorGroup, ``minizero/actor/actor_group.cpp``). Each simulation picks the
 selected parent's state, steps the env, evaluates the leaf, then runs ONE
-fused tree step (``ops/tree_kernel.py``): the CUDA kernel on the card, its
-plain PyTorch version on the CPU.
+fused tree step: the CUDA kernel on the card, its plain PyTorch version on
+the CPU. Two loops, dispatched as in the JAX engine:
+
+- trees with ``max_nodes < 48`` (e.g. Gumbel n=16): ``[B, N, A]`` trees on
+  ``ops/tree_kernel.py`` (kernel B1), node states in ``[B, N, ...]``
+  buffers beside the tree;
+- plain AlphaZero PUCT with ``max_nodes >= 48`` (e.g. n=200): node-indexed
+  packed trees on ``ops/tree_kernel_v2.py`` (kernel B2), node states packed
+  into one ``[B, N, W]`` int32 blob (``ops/state_blob.py``) whose parent row
+  is fetched by ``ops/gather_rows.py`` (kernel B3).
 
 Per move the engine returns what the reference records per move
 (``actor/base_actor.cpp:59-66``): the search policy P, the root mean value V,
 the env reward R, plus the action, the resign signal and the pre-move feature
 planes. ``move_scan`` plays several moves with the finished-game bookkeeping
 (resign gating, the max-move cap, slot resets) of the JAX scan, as a Python
-loop over moves.
+loop over moves. ``search_trees`` returns the finished trees of one search.
 
-Ported so far: AlphaZero on board games with ``max_nodes < 48`` (the JAX
-engine's v1-kernel domain, e.g. Gumbel n=16). Still to port (ROADMAP.md): the
-large-N loop on kernel B2, the think-batch loop, the timed console search,
+Still to port (ROADMAP.md): the think-batch loop, the timed console search,
 MuZero.
 """
 
@@ -32,7 +38,12 @@ import torch
 from minizero_tpu_torch import resolve_device
 from minizero_tpu_torch.config import Config
 from minizero_tpu_torch.envs.base import Env, map_state, select_states
+from minizero_tpu_torch.ops.gather_rows import gather_rows
+from minizero_tpu_torch.ops.state_blob import blob_spec, pack_rows, unpack_rows
 from minizero_tpu_torch.ops.tree_kernel import fused_tree_step, supports_fused_tree_step
+from minizero_tpu_torch.ops.tree_kernel_v2 import (
+    empty_selection_v2, fused_tree_step_v2, grow, pack_trees, supports_fused_tree_step_v2,
+    unpack_trees)
 from minizero_tpu_torch.search import gumbel as gz
 from minizero_tpu_torch.search import mcts
 from minizero_tpu_torch.search.mcts import SearchSpec, Tree
@@ -115,11 +126,12 @@ class SelfPlayEngine:
     card; the CPU is used only when asked for. Random draws (root noise,
     feature rotations, action sampling, resign gating) come from
     ``generator`` where a call passes one, else from the engine's own,
-    seeded with ``seed``."""
+    seeded with ``seed``. ``_force_kernel_v2`` takes the large-N loop at any
+    tree size (tests use it at small n)."""
 
     def __init__(self, env: Env, cfg: Config, network: torch.nn.Module,
                  eval_mode: bool = False, use_bf16: bool = True, device=None,
-                 seed: int = 0):
+                 seed: int = 0, _force_kernel_v2: bool = False):
         self.env = env
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -127,10 +139,12 @@ class SelfPlayEngine:
         self.spec = search_spec_from_config(cfg, env.spec, eval_mode=eval_mode)
         if type(env).reward is not Env.reward:
             raise NotImplementedError("envs with in-tree rewards are not ported yet (ROADMAP.md)")
-        if not supports_fused_tree_step(self.spec) or self.spec.max_nodes >= 48:
-            raise NotImplementedError(
-                "large-N AlphaZero (max_nodes >= 48) runs on tree kernel B2 in the JAX "
-                "package, which is not ported yet (ROADMAP.md, queue B)")
+        # large-N plain AlphaZero runs on the node-indexed v2 tree step (O(A)
+        # per walk step); small trees (Gumbel n=16) stay on v1
+        self.use_tree_kernel_v2 = (supports_fused_tree_step_v2(self.spec)
+                                   and (self.spec.max_nodes >= 48 or _force_kernel_v2))
+        if not self.use_tree_kernel_v2 and not supports_fused_tree_step(self.spec):
+            raise NotImplementedError("think_batch > 1 is not ported yet (ROADMAP.md)")
         self.use_rotation = cfg.actor_use_random_rotation_features and env.num_rotations() > 1
         self.compute_dtype = torch.bfloat16 if use_bf16 else torch.float32
         self._infer_net = (copy.deepcopy(self.network).to(self.compute_dtype)
@@ -138,8 +152,12 @@ class SelfPlayEngine:
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
         # the per-simulation tree transition; a caller may wrap it (e.g. to
         # hold the kernel against its plain version) as long as the contract
-        # of ops.tree_kernel.fused_tree_step is kept
+        # of ops.tree_kernel.fused_tree_step is kept; likewise the large-N
+        # loop's tree step and parent-state gather
         self.tree_step = fused_tree_step
+        self.tree_step_v2 = fused_tree_step_v2
+        self.gather_rows = gather_rows
+        self._blob = None  # the large-N loop's [B, N, W] state blob, reused across moves
 
     # ------------------------------------------------------------- env batch
     def init_batch(self, batch_size: int, generator: Optional[torch.Generator] = None):
@@ -250,6 +268,78 @@ class SelfPlayEngine:
                 getattr(nodes, f.name)[:, s] = getattr(leaf_states, f.name)
         return trees
 
+    def _kernel_sim_loop_v2(self, trees: Tree, root_states, generator) -> Tree:
+        """Large-N AlphaZero sim loop on the node-indexed v2 tree step.
+
+        Node states live in a packed int32 blob ``[B, N, W]``; each
+        simulation gathers the selected parent's row (``self.gather_rows``),
+        unpacks it, steps the env, evaluates the leaf, runs ONE v2 tree step
+        and stores the leaf's row at slot ``s`` in place (node ``s`` is read
+        only where this simulation created it, so the unconditional store is
+        safe). Node capacity is staged (65 -> 129 -> ... -> N): simulations
+        in ``[lo, cap)`` run on capacity-``cap`` arrays."""
+        spec, env = self.spec, self.env
+        batch = trees.visits.shape[0]
+        n = spec.max_nodes
+        dev = trees.visits.device
+        bspec = blob_spec(root_states)
+        shape = (batch, n, bspec.width)
+        if self._blob is None or tuple(self._blob.shape) != shape or self._blob.device != dev:
+            self._blob = torch.empty(shape, dtype=torch.int32, device=dev)
+        blob = self._blob
+        blob[:, 0] = pack_rows(bspec, root_states)
+
+        caps = []
+        c = 65
+        while c < n:
+            caps.append(c)
+            c = (c - 1) * 2 + 1
+        caps.append(n)
+
+        packed = pack_trees(spec, trees, caps[0])
+        zeros_f = torch.zeros((batch, spec.action_size), dtype=torch.float32, device=dev)
+        zeros_b = torch.zeros((batch, spec.action_size), dtype=torch.bool, device=dev)
+        packed, sel = self.tree_step_v2(
+            spec, packed, empty_selection_v2(spec, batch, caps[0], dev), zeros_f, zeros_b,
+            torch.zeros((batch,), dtype=torch.bool, device=dev),
+            torch.zeros((batch,), dtype=torch.float32, device=dev),
+            torch.ones((batch,), dtype=torch.int32, device=dev), 0, 0)
+        lo = 1
+        for cap in caps:
+            if packed.visits.shape[1] < cap:
+                packed = grow(packed, cap)
+                pad = torch.zeros((batch, cap - sel.path.shape[1]), dtype=torch.bool, device=dev)
+                sel.path = torch.cat([sel.path, pad], dim=1)
+            for s in range(lo, cap):
+                parent_states = unpack_rows(bspec, self.gather_rows(blob, sel.parent))
+                leaf_states = env.step(parent_states, sel.action)
+                leaf_terminal = env.is_terminal(leaf_states)
+                policy, _, net_value = self._forward_features(env.features(leaf_states), generator)
+                value = torch.where(leaf_terminal, self._leaf_scores(leaf_states, leaf_terminal),
+                                    net_value)
+                packed, sel = self.tree_step_v2(
+                    spec, packed, sel, policy, env.legal_mask(leaf_states), leaf_terminal,
+                    value, env.turn(leaf_states).to(torch.int32), s, 1)
+                blob[:, s] = pack_rows(bspec, leaf_states)
+            lo = cap
+        return unpack_trees(spec, packed, trees)
+
+    def _search(self, states, turns, feats, generator) -> Tree:
+        """Root evaluation and the whole sim loop; the finished trees."""
+        trees = self._az_root_trees(feats, self.env.legal_mask(states), turns, generator)
+        if self.use_tree_kernel_v2:
+            return self._kernel_sim_loop_v2(trees, states, generator)
+        return self._kernel_sim_loop(trees, states, generator)
+
+    @torch.no_grad()
+    def search_trees(self, states, generator: Optional[torch.Generator] = None) -> Tree:
+        """Run the full search and return the finished trees (the analysis
+        surface of the JAX engine's ``search_trees``)."""
+        self._sync_inference_net()
+        env = self.env
+        return self._search(states, env.turn(states), env.features(states),
+                            generator or self.generator)
+
     def _decide(self, trees: Tree, temperature: float, generator):
         spec = self.spec
         if spec.use_gumbel:
@@ -281,8 +371,7 @@ class SelfPlayEngine:
         else:
             features_u8 = feats.to(torch.uint8)
         self._sync_inference_net()
-        trees = self._az_root_trees(feats, env.legal_mask(states), turns, gen)
-        trees = self._kernel_sim_loop(trees, states, gen)
+        trees = self._search(states, turns, feats, gen)
         action, policy_target, root_value, resign = self._decide(trees, temperature, gen)
         stepped = env.step(states, action)
         return MoveOutput(

@@ -7,6 +7,10 @@ with root noise and feature rotation off, float32, and the integer-exact parity 
 (``tests/parity_common.py``) built in both frameworks. Actions and the
 stepped boards must be equal; policy targets and root values within the
 bounds of that test (the two paths sum in different orders).
+
+The large-N loop (tree step B2 + row gather B3 over the packed state blob)
+is held against the JAX engine's v2 path in the same way: forced at n=10
+(``tests/test_tree_kernel_v2.py:147``) and taken by dispatch at n=50.
 """
 
 import os
@@ -25,7 +29,9 @@ from minizero_tpu.selfplay.engine import SelfPlayEngine as JEngine
 from minizero_tpu_torch.config import algorithm_preset, default_config
 from minizero_tpu_torch.envs import make_env
 from minizero_tpu_torch.models.factory import create_network, init_network
+from minizero_tpu_torch.ops.gather_rows import gather_rows
 from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
+from minizero_tpu_torch.ops.tree_kernel_v2 import fused_tree_step_v2
 from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -62,24 +68,11 @@ def _over(algo):
     return over
 
 
-@pytest.mark.parametrize("algo", ["gaz", "az"])
-def test_engine_moves_match_jax_engine(algo):
-    """Gumbel (the flagship's search) and plain AlphaZero PUCT (n=6, so the
-    JAX engine also takes its v1 tree kernel)."""
-    over = _over(algo)
-    assert dict(j_preset(algo)) == dict(algorithm_preset(algo))
-    jcfg = j_default("go", **over)
-    jenv = j_make_env(jcfg)
-    jnet, jvars = jax_parity_network("go")
-    jeng = JEngine(jenv, jcfg, jnet, use_bf16=False)
-    assert jeng.use_tree_kernel
-
-    cfg = default_config("go", **over)
-    eng = SelfPlayEngine(make_env(cfg), cfg, TorchParityNet(), use_bf16=False, device="cpu")
+def _compare_moves(jeng, jvars, eng, num_moves):
     jstates = jeng.init_batch(4)
     states = eng.init_batch(4)
     rng = jax.random.PRNGKey(7)
-    for mv in range(3):
+    for mv in range(num_moves):
         rng, k = jax.random.split(rng)
         jout = jeng.move(jvars, jstates, k)
         out = eng.move(states)
@@ -96,6 +89,59 @@ def test_engine_moves_match_jax_engine(algo):
                                           np.asarray(getattr(jout, name)), err_msg=f"move {mv} {name}")
         np.testing.assert_array_equal(out.states.board.numpy(), np.asarray(jout.states.board))
         jstates, states = jout.states, out.states
+
+
+@pytest.mark.parametrize("algo", ["gaz", "az"])
+def test_engine_moves_match_jax_engine(algo):
+    """Gumbel (the flagship's search) and plain AlphaZero PUCT (n=6, so the
+    JAX engine also takes its v1 tree kernel)."""
+    over = _over(algo)
+    assert dict(j_preset(algo)) == dict(algorithm_preset(algo))
+    jcfg = j_default("go", **over)
+    jnet, jvars = jax_parity_network("go")
+    jeng = JEngine(j_make_env(jcfg), jcfg, jnet, use_bf16=False)
+    assert jeng.use_tree_kernel and not jeng.use_tree_kernel_v2
+
+    cfg = default_config("go", **over)
+    eng = SelfPlayEngine(make_env(cfg), cfg, TorchParityNet(), use_bf16=False, device="cpu")
+    assert not eng.use_tree_kernel_v2
+    _compare_moves(jeng, jvars, eng, 3)
+
+
+@pytest.mark.parametrize("sims,force,num_moves", [(10, True, 3), (50, False, 2)],
+                         ids=["forced-v2-n10", "dispatch-n50"])
+def test_engine_v2_moves_match_jax_engine(sims, force, num_moves):
+    """The large-N loop: packed trees on the v2 tree step, parent states
+    gathered from the packed blob; both engines must take it."""
+    over = _over("az")
+    over.update(actor_num_simulation=sims)
+    jcfg = j_default("go", **over)
+    jnet, jvars = jax_parity_network("go")
+    jeng = JEngine(j_make_env(jcfg), jcfg, jnet, use_bf16=False, _force_kernel_v2=force)
+    assert jeng.use_tree_kernel_v2
+
+    cfg = default_config("go", **over)
+    eng = SelfPlayEngine(make_env(cfg), cfg, TorchParityNet(), use_bf16=False, device="cpu",
+                         _force_kernel_v2=force)
+    assert eng.use_tree_kernel_v2 and eng.spec.max_nodes == sims + 1
+    before = (fused_tree_step.launches, fused_tree_step_v2.launches, gather_rows.launches)
+    _compare_moves(jeng, jvars, eng, num_moves)
+    # no kernel launches on the CPU
+    assert (fused_tree_step.launches, fused_tree_step_v2.launches, gather_rows.launches) == before
+
+
+def test_az200_takes_the_v2_path_and_gaz16_stays_on_v1():
+    """The flagship AlphaZero config (n=200) builds and dispatches to the
+    large-N loop; the Gumbel n=16 config keeps the v1 loop."""
+    tiny = dict(nn_num_hidden_channels=8, nn_num_value_hidden_channels=8)
+    for algo, sims, want_v2 in (("az", 200, True), ("gaz", 16, False)):
+        over = dict(algorithm_preset(algo))
+        over.update(actor_num_simulation=sims, **tiny)
+        cfg = default_config("go", **over)
+        env = make_env(cfg)
+        eng = SelfPlayEngine(env, cfg, init_network(create_network(cfg, env.spec), seed=0),
+                             use_bf16=False, device="cpu")
+        assert eng.use_tree_kernel_v2 == want_v2, algo
 
 
 def test_move_scan_on_cpu_plays_legal_moves_with_resets():

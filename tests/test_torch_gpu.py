@@ -18,7 +18,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _need_card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA tree-step kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+
+
+def _assert_equal_outputs(got, want, what):
+    """Integers and bools exact, floats within 1e-5, field by field."""
+    for f in dataclasses.fields(got):
+        g, w = getattr(got, f.name), getattr(want, f.name)
+        if g.dtype.is_floating_point:
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-5, msg=f"{what}: {f.name}")
+        else:
+            assert torch.equal(g, w), f"{what}: {f.name}"
 
 
 @pytest.mark.gpu
@@ -66,6 +76,133 @@ def test_tree_step_kernel_matches_plain_on_card(use_gumbel):
         states = eng.move(states).states
     torch.cuda.synchronize()
     assert calls == list(range(17)) * 2
+
+
+@pytest.mark.gpu
+def test_tree_step_v2_and_gather_rows_kernels_match_plain_on_card():
+    """Every v2 tree step and every parent-state gather of two moves of a
+    staged search (az n=80: capacity stages 65 and 81) at B=96 (Go 9x9, a
+    1 x 32 net): each kernel and its plain version run from the same state."""
+    _need_card()
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.models.factory import create_network, init_network
+    from minizero_tpu_torch.ops.gather_rows import gather_rows, gather_rows_reference
+    from minizero_tpu_torch.ops.tree_kernel_v2 import fused_tree_step_v2, tree_step_v2_reference
+    from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
+
+    over = dict(algorithm_preset("az"))
+    over.update(actor_num_simulation=80, nn_num_hidden_channels=32, nn_num_value_hidden_channels=32)
+    cfg = default_config("go", **over)
+    env = make_env(cfg)
+    eng = SelfPlayEngine(env, cfg, init_network(create_network(cfg, env.spec), seed=5),
+                         device="cuda", seed=6)
+    assert eng.use_tree_kernel_v2
+    steps, gathers, caps = [], [], set()
+
+    def checked_step(spec, packed, sel, *rest):
+        want_p, want_s = tree_step_v2_reference(spec, packed, sel.clone(), *rest)
+        before = fused_tree_step_v2.launches
+        got_p, got_s = fused_tree_step_v2(spec, packed, sel, *rest)
+        assert fused_tree_step_v2.launches == before + 1
+        _assert_equal_outputs(got_p, want_p, f"sim {rest[-2]}")
+        _assert_equal_outputs(got_s, want_s, f"sim {rest[-2]}")
+        steps.append(rest[-2])
+        caps.add(packed.visits.shape[1])
+        return got_p, got_s
+
+    def checked_gather(x, idx):
+        before = gather_rows.launches
+        got = gather_rows(x, idx)
+        assert gather_rows.launches == before + 1
+        assert torch.equal(got, gather_rows_reference(x, idx))
+        gathers.append(1)
+        return got
+
+    eng.tree_step_v2, eng.gather_rows = checked_step, checked_gather
+    states = eng.init_batch(96)
+    for _ in range(2):
+        states = eng.move(states).states
+    torch.cuda.synchronize()
+    assert steps == list(range(81)) * 2 and len(gathers) == 160 and caps == {65, 81}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("init_q_average", [False, True])
+def test_tree_step_v2_kernel_matches_plain_on_random_trees(init_q_average):
+    """Random trees (B=64, A=8, n=40, capacity stages 5 -> 9 -> 17 -> 33 ->
+    41) with many terminal leaves, so that terminal children are selected
+    again and back up their stored value, under both init-Q rules: kernel
+    and plain version from the same state at every simulation."""
+    _need_card()
+    from minizero_tpu_torch.ops import tree_kernel_v2 as tv2
+    from minizero_tpu_torch.search import mcts
+
+    b, a, sims = 64, 8, 40
+    spec = mcts.SearchSpec(action_size=a, num_simulations=sims, use_gumbel=False,
+                           flip_player2_value=True, init_q_average=init_q_average)
+    g = torch.Generator(device="cuda").manual_seed(11 + init_q_average)
+    dev = "cuda"
+
+    def leaf_inputs():
+        policy = torch.softmax(torch.randn((b, a), generator=g, device=dev), -1)
+        legal = torch.rand((b, a), generator=g, device=dev) < 0.9
+        legal[:, 0] = True
+        terminal = torch.rand((b,), generator=g, device=dev) < 0.45
+        value = torch.rand((b,), generator=g, device=dev) * 2.0 - 1.0
+        turn = (1 + (torch.rand((b,), generator=g, device=dev) < 0.5)).to(torch.int32)
+        return policy, legal.contiguous(), terminal, value, turn
+
+    policy, legal, _, value, _ = leaf_inputs()
+    turns = torch.ones((b,), dtype=torch.int32, device=dev)
+    zeros_i = torch.zeros((b,), dtype=torch.int32, device=dev)
+    trees = mcts.init_tree(spec, turns)
+    trees = mcts.expand_node(spec, trees, 0, zeros_i - 1, zeros_i, turns, policy, policy.log(),
+                             legal, torch.zeros((b,), dtype=torch.bool, device=dev))
+    trees = mcts.backup(spec, trees, zeros_i, value, torch.zeros_like(value))
+    caps = [5, 9, 17, 33, sims + 1]
+    packed = tv2.pack_trees(spec, trees, caps[0])
+    sel = tv2.empty_selection_v2(spec, b, caps[0], dev)
+    cap_i, revisits = 0, 0
+    for sim in range(sims + 1):
+        if sim >= caps[cap_i]:
+            cap_i += 1
+            packed = tv2.grow(packed, caps[cap_i])
+            extra = caps[cap_i] - sel.path.shape[1]
+            sel.path = torch.cat([sel.path, torch.zeros((b, extra), dtype=torch.bool, device=dev)], 1)
+        li = leaf_inputs()
+        phase = 0 if sim == 0 else 1
+        revisits += int((~sel.is_new).sum()) if phase else 0
+        want_p, want_s = tv2.tree_step_v2_reference(spec, packed, sel, *li, sim, phase)
+        packed, sel = tv2.fused_tree_step_v2(spec, packed, sel, *li, sim, phase)
+        _assert_equal_outputs(packed, want_p, f"sim {sim}")
+        _assert_equal_outputs(sel, want_s, f"sim {sim}")
+    assert revisits > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,w", [(5, 7, 697), (13, 12, 128), (1023, 201, 697), (64, 9, 8)])
+def test_gather_rows_kernel_matches_plain_on_card(b, n, w):
+    """Odd batches, node counts that are not a multiple of 8, the Go 9x9
+    row width (697 words, 4-byte copies) and widths that take 16-byte
+    copies; -1 and out-of-range indices are skipped (their rows are not
+    compared: the kernel leaves them undefined)."""
+    _need_card()
+    from minizero_tpu_torch.ops.gather_rows import gather_rows, gather_rows_reference
+
+    g = torch.Generator(device="cuda").manual_seed(b)
+    x = torch.randint(-2**31, 2**31 - 1, (b, n, w), generator=g, device="cuda", dtype=torch.int32)
+    idx = torch.randint(0, n, (b,), generator=g, device="cuda", dtype=torch.int32)
+    skip = torch.rand((b,), generator=g, device="cuda") < 0.3
+    idx = torch.where(skip, torch.where(torch.rand((b,), generator=g, device="cuda") < 0.5, -1, n),
+                      idx).to(torch.int32)
+    before = gather_rows.launches
+    got = gather_rows(x, idx)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    want = gather_rows_reference(x, idx)
+    assert torch.equal(got[~skip], want[~skip])
+    assert torch.equal(got[~skip], x[torch.arange(b, device="cuda"), idx.long().clamp(0, n - 1)][~skip])
 
 
 def test_port_and_chip_smoke_import_without_jax():
