@@ -2,31 +2,36 @@
 
     python3 chip_smoke.py
 
-Drives the port's two self-play paths (``minizero_tpu_torch``) at full
-width, with 1 x 256 nets made from a seed, bf16 inference and 1024 games in
-lock-step, and holds every CUDA kernel of them against its plain PyTorch
-version on the card:
+Drives the port's self-play and search paths (``minizero_tpu_torch``) at
+full width, with 1 x 256 nets made from a seed and bf16 inference, and holds
+every CUDA kernel of them against its plain PyTorch version on the card:
 
-- the flagship Go 9x9 Gumbel AlphaZero path, n=16 (tree step B1,
-  ``csrc/tree_step.cu``);
-- the large-N Go 9x9 AlphaZero path, n=200 (tree step B2,
+- the flagship Go 9x9 Gumbel AlphaZero path, n=16, 1024 games (tree step
+  B1, ``csrc/tree_step.cu``, board regime);
+- the large-N Go 9x9 AlphaZero path, n=200, 1024 games (tree step B2,
   ``csrc/tree_step_v2.cu``, and the parent-state row gather B3,
-  ``csrc/gather_rows.cu``).
+  ``csrc/gather_rows.cu``);
+- Go 9x9 Gumbel MuZero, n=16, 1024 games (tree step B1, board regime, with
+  the MuZero network and its hidden-state store);
+- the Atari MuZero search, n=50, 256 games on random features, as the JAX
+  package's ``bench.py:143-188`` runs it (tree step B1 in its reward
+  regime, B1': leaf rewards, discount 0.997, value rescale).
 
 Phases:
 
   1. device: the card's name and power limit;
   2. build: every kernel with nvcc (seconds, registers, shared memory);
-  3. kernel vs plain version: one full-width move of each path in which
-     every kernel launch runs beside its plain version from the same state;
-     integers must match exactly, floats within 1e-5; then a small input of
-     each path played on the card and on the CPU;
-  4. main paths: ``move_scan`` of each path (8 gaz moves, 4 az moves) after
-     a warm-up move, with every launch counter set to 0 just before and
-     read just after, legality of every action, env-steps/s, and each
-     kernel's time beside its plain version's, its bound and (where one
-     PyTorch call computes the same function) that call's;
-  5. where a move's device time goes: one move of each path under
+  3. kernel vs plain version: one full-width move or search of each path in
+     which every kernel launch runs beside its plain version from the same
+     state; integers must match exactly, floats within 1e-5; then small
+     inputs of each path played on the card and on the CPU;
+  4. main paths: ``move_scan`` of each self-play path (8 gaz moves, 4 az
+     moves, 8 gmz moves) and 3 Atari searches, after a warm-up, with every
+     launch counter set to 0 just before and read just after, legality of
+     every action, env-steps/s or ms per search, and each kernel's time
+     beside its plain version's, its bound and (where one PyTorch call
+     computes the same function) that call's;
+  5. where the device time goes: one move or search of each path under
      ``torch.profiler``.
 
 Prints one progress line per phase, then a JSON line of kernel numbers, the
@@ -37,6 +42,7 @@ is present. Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -50,12 +56,16 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# flagship self-play config (bench.py:1-12) and the large-N AlphaZero
-# config (bench.py:54-67: az n=200)
+# flagship self-play config (bench.py:1-12), the large-N AlphaZero config
+# (bench.py:54-67: az n=200), Go Gumbel MuZero (the runs/go9_gmz_r4 config)
+# and the Atari MuZero search (bench.py:143-188: n=50, B=256)
 BATCH = 1024
 SCAN_MOVES = 8
 AZ_SIMS = 200
 AZ_SCAN_MOVES = 4
+ATARI_BATCH = 256
+ATARI_SIMS = 50
+ATARI_SEARCHES = 3
 FLOAT_ATOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
@@ -88,16 +98,20 @@ def card_line() -> str:
 class TreeStepCheck:
     """Wraps the engine's tree step: each call runs the CUDA kernel and the
     plain PyTorch version from the same state and compares every output.
-    Keeps a copy of the inputs of simulation ``keep_sim`` for timing."""
+    Keeps a copy of the inputs of simulation ``keep_sim`` for timing, and
+    counts the calls in the reward regime (B1')."""
 
     def __init__(self, keep_sim: int):
-        from minizero_tpu_torch.ops.tree_kernel import fused_tree_step, tree_step_reference
+        from minizero_tpu_torch.ops.tree_kernel import (
+            fused_tree_step, tree_step_reference, uses_reward_regime)
 
         self.kernel = fused_tree_step
         self.plain = tree_step_reference
+        self.reward_regime = uses_reward_regime
         self.keep_sim = keep_sim
         self.kept = None
         self.calls = 0
+        self.reward_calls = 0
         self.int_elems = 0
         self.float_elems = 0
         self.max_abs_err = 0.0
@@ -115,7 +129,7 @@ class TreeStepCheck:
                 bad = int((got != want).sum())
                 fail(f"tree step {where}: {name} differs in {bad} of {got.numel()} elements")
 
-    def __call__(self, spec, trees, sel, *rest):
+    def __call__(self, spec, trees, sel, *rest, leaf_reward=None):
         node_idx, phase = rest[-2], rest[-1]
         leaf = rest[:-2]
         ref_in = trees.clone()
@@ -123,15 +137,18 @@ class TreeStepCheck:
                                               for f in dataclasses.fields(sel)})
         if node_idx == self.keep_sim and self.kept is None:
             self.kept = (spec, trees.clone(), ref_sel, tuple(x.clone() for x in leaf),
-                         node_idx, phase)
-        want_t, want_s = self.plain(spec, ref_in, ref_sel, *leaf, node_idx, phase)
-        got_t, got_s = self.kernel(spec, trees, sel, *leaf, node_idx, phase)
+                         node_idx, phase, None if leaf_reward is None else leaf_reward.clone())
+        want_t, want_s = self.plain(spec, ref_in, ref_sel, *leaf, node_idx, phase,
+                                    leaf_reward=leaf_reward)
+        got_t, got_s = self.kernel(spec, trees, sel, *leaf, node_idx, phase,
+                                   leaf_reward=leaf_reward)
         where = f"sim {node_idx} (phase {phase})"
         for f in dataclasses.fields(got_t):
             self._compare(f.name, getattr(got_t, f.name), getattr(want_t, f.name), where)
         for name in ("parent", "action", "leaf", "is_new", "path"):
             self._compare(f"selection.{name}", getattr(got_s, name), getattr(want_s, name), where)
         self.calls += 1
+        self.reward_calls += int(self.reward_regime(spec, leaf_reward))
         return got_t, got_s
 
 
@@ -139,8 +156,14 @@ def tree_step_work(kept, nsel, trees_after):
     """(bytes, flops) that one tree step must move / do for these inputs:
     each input read once and each output written once, counting only what
     this run's data needs (the rows of new leaves, the path nodes backed
-    up, the root row, the rows of the nodes the walk passes through)."""
-    spec, trees, sel, leaf, _, _ = kept
+    up, the root row, the rows of the nodes the walk passes through). In
+    the reward regime also the leaf rewards, the reward of each backed-up
+    node and of each child read, and one pass over the visits, means and
+    rewards of the N nodes for the tree's value bounds."""
+    spec, trees, sel, leaf, _, _, leaf_reward = kept
+    from minizero_tpu_torch.ops.tree_kernel import uses_reward_regime
+
+    rewards = uses_reward_regime(spec, leaf_reward)
     b, n = trees.visits.shape
     a = spec.action_size
     new = int(sel.is_new.sum())
@@ -150,6 +173,11 @@ def tree_step_work(kept, nsel, trees_after):
     byts += new * a * 9                   # policy/logit/legal rows of new leaves
     byts += new * (a * 9 + 2 + 4 * 4 + 4)  # the new node's row, scalars, parent edge
     byts += path_nodes * 16               # backup: visits and mean, read and written
+    if rewards:
+        byts += b * 4 + new * 4           # leaf rewards in, the new nodes' rewards out
+        byts += path_nodes * 8            # the serial backup reads reward and parent
+        if spec.value_rescale:
+            byts += b * n * 12            # value bounds: visits, mean, reward of every node
     # root statistics (children_index, logit, legal, gumbel_active; the
     # root children's visits and means; gumbel state)
     root_children = int((trees_after.children_index[:, 0] >= 0).sum())
@@ -167,9 +195,11 @@ def tree_step_work(kept, nsel, trees_after):
         walked[:, 0] = False
     children = int(((trees_after.children_index >= 0) & walked[:, :, None]).sum())
     walked = int(walked.sum())
-    byts += walked * (a * 9 + 8) + children * 8
+    byts += walked * (a * 9 + 8) + children * (12 if rewards else 8)
     byts += b * (4 * 3 + 1 + n)           # selection out
     flops = walked * a * 12 + halved * a * a * 3 + b * a * 6
+    if rewards:  # q = reward + discount * mean, the rescale, the bounds
+        flops += (children + root_children) * 7 + path_nodes * 2 + b * n * 4
     return byts, flops
 
 
@@ -199,18 +229,34 @@ def time_kernel(kept, reps: int = 20):
     the kept state, by CUDA events on the card's clock."""
     from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
 
-    spec, trees, sel, leaf, node_idx, phase = kept
+    spec, trees, sel, leaf, node_idx, phase, reward = kept
     copies = [trees.clone() for _ in range(reps + 1)]
-    return time_events(lambda i: fused_tree_step(spec, copies[i], sel, *leaf, node_idx, phase),
-                       reps)
+    return time_events(lambda i: fused_tree_step(spec, copies[i], sel, *leaf, node_idx, phase,
+                                                 leaf_reward=reward), reps)
 
 
 def time_plain(kept, reps: int = 5):
     from minizero_tpu_torch.ops.tree_kernel import tree_step_reference
 
-    spec, trees, sel, leaf, node_idx, phase = kept
-    return time_events(lambda i: tree_step_reference(spec, trees, sel, *leaf, node_idx, phase),
-                       reps, hold=False)
+    spec, trees, sel, leaf, node_idx, phase, reward = kept
+    return time_events(lambda i: tree_step_reference(spec, trees, sel, *leaf, node_idx, phase,
+                                                     leaf_reward=reward), reps, hold=False)
+
+
+def tree_step_numbers(kept):
+    """(kernel ms, plain ms, bound ms, bound_by, bytes, flops) of the CUDA
+    tree step at the kept state."""
+    from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
+
+    k_ms = time_kernel(kept)
+    p_ms = time_plain(kept)
+    spec, trees, sel, leaf, idx, phase, reward = kept
+    after = trees.clone()
+    _, nsel = fused_tree_step(spec, after, sel, *leaf, idx, phase, leaf_reward=reward)
+    byts, flops = tree_step_work(kept, nsel, after)
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (k_ms, p_ms, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            byts, flops)
 
 
 # ---------------------------------------------------------------------------
@@ -362,18 +408,89 @@ def integer_net(spec, seed: int):
     return IntegerNet()
 
 
-def profile_move(engine, states, ms_per_move: float, kernel_names=()):
-    """One profiled move: device busy time (the summed durations of the
-    kernels and copies that ran on the card) against the unprofiled move
-    time, kernel launches per move, and the kernels that take the most
-    device time. Returns the summary line and the device ms of each kernel
-    whose name contains one of ``kernel_names``."""
+def integer_muzero_net(spec, seed: int):
+    """A MuZero net whose hidden states stay integers (mod 16) and whose
+    logits, values and rewards are sums of small integers (exact in float32
+    in any order), so the card and the CPU evaluate it identically (up to
+    ~1 ulp in the softmax). Board features (0/1) go through an integer
+    matrix; Atari features (bytes / 255) through a gather of K pixels.
+    Hidden states are flat [B, K], K = 4 * hidden H * W."""
+    from torch import nn
+
+    c, h, w, a = spec.num_input_channels, spec.input_height, spec.input_width, spec.action_size
+    k = 4 * spec.hidden_height * spec.hidden_width
+    ca = spec.num_action_feature_channels * spec.hidden_height * spec.hidden_width
+    d = spec.discrete_value_size
+    atari_mode = "atari" in spec.name
+
+    class IntegerMuZeroNet(nn.Module):
+        def __init__(self):
+            super().__init__()
+            rng = np.random.default_rng(seed)
+
+            def ints(lo, hi, shape):
+                return torch.from_numpy(rng.integers(lo, hi + 1, size=shape).astype(np.float32))
+
+            if atari_mode:
+                self.register_buffer("ridx", torch.from_numpy(rng.integers(0, h * w * c, size=k)))
+            else:
+                self.register_buffer("wr", ints(-3, 3, (h * w * c, k)))
+            self.register_buffer("wd", ints(-2, 2, (k, k)))
+            self.register_buffer("wa", ints(-7, 7, (ca, k)))
+            self.register_buffer("wp", ints(-7, 7, (k, a)))
+            self.register_buffer("wv", ints(-3, 3, (k,)))
+            self.register_buffer("wvd", ints(-2, 2, (k,)))
+            self.register_buffer("wrd", ints(-2, 2, (k,)))
+            self.register_buffer("offset", torch.arange(a, dtype=torch.float32) * 2.0 ** -16)
+
+        @staticmethod
+        def _mod(t, m):
+            return t - m * torch.floor(t / m)
+
+        def _bins(self, t):
+            # two-hot head on bins d//2 - 4 .. d//2 + 3 (values -4 .. 3)
+            idx = self._mod(t, 8.0).long() + (d // 2 - 4)
+            return (idx[:, None] == torch.arange(d, device=t.device)).float()
+
+        def _predict(self, hidden):
+            logits = (hidden @ self.wp) / 256.0 + self.offset
+            out = {"policy_logit": logits, "policy": torch.softmax(logits, -1),
+                   "hidden_state": hidden}
+            if atari_mode:
+                out["value"] = self._bins(hidden @ self.wvd)
+            else:
+                out["value"] = torch.clamp((hidden @ self.wv) / 16384.0, -0.96875, 0.96875)[:, None]
+            return out
+
+        def initial_inference(self, state):
+            x = state.float().reshape(state.shape[0], -1)
+            if atari_mode:
+                return self._predict(self._mod(torch.round(x[:, self.ridx] * 255.0), 16.0))
+            return self._predict(self._mod(x @ self.wr, 16.0))
+
+        def recurrent_inference(self, hidden_state, action_plane):
+            ap = action_plane.float().reshape(action_plane.shape[0], -1)
+            out = self._predict(self._mod(hidden_state @ self.wd + ap @ self.wa, 16.0))
+            if atari_mode:
+                out["reward"] = self._bins(out["hidden_state"] @ self.wrd)
+            return out
+
+    return IntegerMuZeroNet()
+
+
+def profile_run(fn, ms_per_run: float, kernel_names=(), what: str = "move"):
+    """One profiled call of ``fn`` (a move or a search): device busy time
+    (the summed durations of the kernels and copies that ran on the card)
+    against the unprofiled time of one call, kernel launches per call, and
+    the kernels that take the most device time. Returns the summary line and
+    the device ms of each kernel whose name contains one of
+    ``kernel_names``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.move(states)
+        fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
     # device-side events only: a CPU operator also reports the device time
@@ -387,9 +504,10 @@ def profile_move(engine, states, ms_per_move: float, kernel_names=()):
     launches = sum(e.count for e in events if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
     top = sorted(dev, key=lambda x: -x[1])[:8]
     parts = "; ".join(f"{k[:60]} {d:.2f} ms x{c}" for k, d, c in top)
-    own = "; ".join(f"{n} {d:.3f} ms ({d / ms_per_move:.4f} of the move)" for n, d in named.items())
-    return (f"device busy {busy_ms:.2f} ms of {ms_per_move:.1f} ms/move "
-            f"(idle share {1 - busy_ms / ms_per_move:.3f}), {launches} kernel launches/move; "
+    own = "; ".join(f"{n} {d:.3f} ms ({d / ms_per_run:.4f} of the {what})"
+                    for n, d in named.items())
+    return (f"device busy {busy_ms:.2f} ms of {ms_per_run:.1f} ms/{what} "
+            f"(idle share {1 - busy_ms / ms_per_run:.3f}), {launches} kernel launches/{what}; "
             f"top device time: {parts}" + (f"; kernels of the port: {own}" if own else ""))
 
 
@@ -416,7 +534,8 @@ def check_scan(engine, start_states, scan, end_states, moves: int, what: str) ->
 def small_search_card_vs_cpu(algo: str, over: dict, moves: int, what: str) -> str:
     """A small search (B=64, f32, integer-exact net, noise and rotation
     off) played on the card and on the CPU from the same random openings:
-    actions equal, policy targets and root values within 1e-4 / 1e-5."""
+    actions equal, policy targets and root values within 1e-4 / 1e-5. A
+    MuZero ``algo`` takes the integer-exact MuZero net."""
     from minizero_tpu_torch.config import algorithm_preset, default_config
     from minizero_tpu_torch.envs import make_env
     from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
@@ -427,8 +546,9 @@ def small_search_card_vs_cpu(algo: str, over: dict, moves: int, what: str) -> st
                  **over)
     scfg = default_config("go", **small)
     senv = make_env(scfg)
-    gpu_eng = SelfPlayEngine(senv, scfg, integer_net(senv.spec, 7), use_bf16=False, device="cuda")
-    cpu_eng = SelfPlayEngine(senv, scfg, integer_net(senv.spec, 7), use_bf16=False, device="cpu")
+    make_net = integer_muzero_net if algo.endswith("mz") else integer_net
+    gpu_eng = SelfPlayEngine(senv, scfg, make_net(senv.spec, 7), use_bf16=False, device="cuda")
+    cpu_eng = SelfPlayEngine(senv, scfg, make_net(senv.spec, 7), use_bf16=False, device="cpu")
     gs, cs = gpu_eng.init_batch(64), cpu_eng.init_batch(64)
     rng = np.random.default_rng(0)
     for _ in range(6):  # distinct random openings, the same on both devices
@@ -450,6 +570,72 @@ def small_search_card_vs_cpu(algo: str, over: dict, moves: int, what: str) -> st
             f"root value diff <= {verr:.2g}")
 
 
+def atari_search(net, cfg, batch: int, compute_dtype, seed: int):
+    """The Atari MuZero search of ``bench.py:143-188`` on the card: the
+    search, random features in [0, 1) from ``seed`` (no ALE: the env is
+    host-side), all actions legal, one player."""
+    from minizero_tpu_torch.envs import atari
+    from minizero_tpu_torch.selfplay.engine import search_spec_from_config
+    from minizero_tpu_torch.selfplay.muzero_search import make_muzero_search
+
+    spec = atari.atari_spec()
+    search = make_muzero_search(net, search_spec_from_config(cfg, spec),
+                                lambda a: atari.action_features(a, spec), num_players=1,
+                                discrete_value=True, compute_dtype=compute_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    feats = torch.rand((batch, spec.input_height, spec.input_width, spec.num_input_channels),
+                       generator=gen, device="cuda")
+    if compute_dtype == torch.float32:  # whole bytes, as the ALE's frames / 255
+        feats = torch.floor(feats * 256.0) / 255.0
+    legal = torch.ones((batch, spec.action_size), dtype=torch.bool, device="cuda")
+    turns = torch.ones((batch,), dtype=torch.int32, device="cuda")
+    return search, feats, legal, turns
+
+
+def check_search_result(res, batch: int, actions: int, what: str) -> None:
+    """Actions in range, finite policy targets that sum to 1, finite root
+    values."""
+    if tuple(res.action.shape) != (batch,) or not bool(((res.action >= 0) & (res.action < actions)).all()):
+        fail(f"{what}: actions out of range or of the wrong shape")
+    pt = res.policy_target
+    if tuple(pt.shape) != (batch, actions) or not bool(torch.isfinite(pt).all()):
+        fail(f"{what}: policy targets of the wrong shape or not finite")
+    if float((pt.sum(-1) - 1.0).abs().max()) > 1e-4 or not bool(torch.isfinite(res.root_value).all()):
+        fail(f"{what}: policy targets do not sum to 1 or root values are not finite")
+
+
+def small_atari_card_vs_cpu(cfg) -> str:
+    """The Atari MuZero search (B=64, n=50, f32, integer-exact MuZero net,
+    noise off, select by count) on the card and on the CPU from the same
+    features: actions and root visits equal, policy targets within 1e-4,
+    root values within 1e-5 relative."""
+    from minizero_tpu_torch.envs import atari
+    from minizero_tpu_torch.search import mcts
+
+    search, feats, legal, turns = atari_search(
+        integer_muzero_net(atari.atari_spec(), 11).cuda(), cfg, 64, torch.float32, seed=12)
+    with torch.no_grad():
+        gt = search.search_trees(feats, legal, turns)
+        search.network = search.network.cpu()
+        ct = search.search_trees(feats.cpu(), legal.cpu(), turns.cpu())
+    gv, cv = mcts.root_children_visits(gt).cpu(), mcts.root_children_visits(ct)
+    if not torch.equal(gv, cv):
+        fail("small Atari search: card and CPU root visits differ")
+    ga, ca = mcts.select_action_by_max_count(gt).cpu(), mcts.select_action_by_max_count(ct)
+    if not torch.equal(ga, ca):
+        fail("small Atari search: card and CPU actions differ")
+    perr = float((mcts.mcts_policy_target(gt).cpu() - mcts.mcts_policy_target(ct)).abs().max())
+    gm, cm = gt.mean[:, 0].cpu(), ct.mean[:, 0]
+    verr = float(((gm - cm).abs() / cm.abs().clamp(min=1.0)).max())
+    if not (perr <= 1e-4 and verr <= 1e-5):
+        fail(f"small Atari search: policy target diff {perr}, relative root value diff {verr}")
+    if not bool((gt.reward != 0).any()):
+        fail("small Atari search: no reward reached the trees")
+    return (f"card == CPU root visits and actions of 64 searches (f32, n={cfg.actor_num_simulation}), "
+            f"policy target diff <= {perr:.2g}, relative root value diff <= {verr:.2g}, "
+            f"|root value| up to {float(cm.abs().max()):.3g}")
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     if not torch.cuda.is_available():
@@ -457,6 +643,7 @@ def main() -> None:
     import minizero_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
     from minizero_tpu_torch.config import algorithm_preset, default_config
     from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.envs.atari import atari_spec
     from minizero_tpu_torch.models.factory import create_network, init_network
     from minizero_tpu_torch.ops import _build
     from minizero_tpu_torch.ops.gather_rows import gather_rows, gather_rows_reference
@@ -470,11 +657,13 @@ def main() -> None:
 
     def counts():
         return {"tree_step": fused_tree_step.launches,
+                "tree_step_rewards": fused_tree_step.launches_rewards,
                 "tree_step_v2": fused_tree_step_v2.launches,
                 "gather_rows": gather_rows.launches}
 
     def zero_counts():
-        fused_tree_step.launches = fused_tree_step_v2.launches = gather_rows.launches = 0
+        fused_tree_step.launches = fused_tree_step.launches_rewards = 0
+        fused_tree_step_v2.launches = gather_rows.launches = 0
 
     # ---- 1. device -----------------------------------------------------------
     card = card_line()
@@ -514,8 +703,9 @@ def main() -> None:
     out = engine.move(states)
     torch.cuda.synchronize()
     engine.tree_step = fused_tree_step
-    if check.calls != spec.num_simulations + 1:
-        fail(f"expected {spec.num_simulations + 1} tree steps in a move, saw {check.calls}")
+    if check.calls != spec.num_simulations + 1 or check.reward_calls:
+        fail(f"expected {spec.num_simulations + 1} board-regime tree steps in a move, saw "
+             f"{check.calls} ({check.reward_calls} in the reward regime)")
     log(f"phase 3 kernel vs plain: {check.calls} tree steps equal; {check.int_elems} integer "
         f"elements exact, {check.float_elems} float elements, max |diff| {check.max_abs_err:.3g} "
         f"(tol {FLOAT_ATOL}), in {time.perf_counter() - t:.2f} s")
@@ -564,6 +754,46 @@ def main() -> None:
     msg = small_search_card_vs_cpu("az", {"actor_num_simulation": 50}, 2, "small az search")
     log(f"phase 3d small az search: {msg}, in {time.perf_counter() - t:.2f} s")
 
+    # 3e. the Atari MuZero search (bench.py:143-188): B1' beside its plain
+    # version on every launch of one full-width search
+    at_cfg = default_config("atari", **algorithm_preset("mz"), actor_num_simulation=ATARI_SIMS)
+    at_net = init_network(create_network(at_cfg, atari_spec()), seed=2).cuda().eval()
+    at_search, at_feats, at_legal, at_turns = atari_search(
+        copy.deepcopy(at_net).to(torch.bfloat16), at_cfg, ATARI_BATCH, torch.bfloat16, seed=3)
+    at_spec = at_search.spec
+    if not (at_spec.value_rescale and at_spec.discount != 1.0 and at_spec.init_q_average):
+        fail("the Atari config lost its value rescale, discount or average init-Q")
+    log(f"config: atari mz n={at_spec.num_simulations} net {at_cfg.nn_num_blocks}x"
+        f"{at_cfg.nn_num_hidden_channels} bf16, B={ATARI_BATCH}, N={at_spec.max_nodes}, "
+        f"A={at_spec.action_size}, discount {at_spec.discount}, value rescale, average init-Q")
+    at_check = TreeStepCheck(keep_sim=ATARI_SIMS // 2)
+    at_search.tree_step = at_check
+    at_gen = torch.Generator(device="cuda").manual_seed(4)
+    t = time.perf_counter()
+    with torch.no_grad():
+        at_res = at_search(at_feats, at_legal, at_turns, at_gen)
+    torch.cuda.synchronize()
+    at_search.tree_step = fused_tree_step
+    if at_check.calls != ATARI_SIMS + 1 or at_check.reward_calls != ATARI_SIMS + 1:
+        fail(f"expected {ATARI_SIMS + 1} reward-regime tree steps in an Atari search, saw "
+             f"{at_check.calls} ({at_check.reward_calls} in the reward regime)")
+    check_search_result(at_res, ATARI_BATCH, at_spec.action_size, "Atari search")
+    log(f"phase 3e kernel vs plain (atari mz n={ATARI_SIMS}, B1'): {at_check.calls} reward-regime "
+        f"tree steps equal; {at_check.int_elems} integer elements exact, {at_check.float_elems} "
+        f"float elements, max |diff| {at_check.max_abs_err:.3g} (tol {FLOAT_ATOL}); root values "
+        f"{float(at_res.root_value.min()):.4g} .. {float(at_res.root_value.max()):.4g}; in "
+        f"{time.perf_counter() - t:.2f} s")
+
+    # 3f. small MuZero searches on the card and on the CPU, integer-exact
+    # MuZero nets: Go Gumbel MuZero through the engine, the Atari search
+    t = time.perf_counter()
+    msg = small_search_card_vs_cpu("gmz", {}, 3, "small gmz search")
+    log(f"phase 3f small gmz search: {msg}, in {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    small_at_cfg = at_cfg.replace(actor_use_dirichlet_noise=False, actor_select_action_by_count=True)
+    msg = small_atari_card_vs_cpu(small_at_cfg)
+    log(f"phase 3f small Atari search: {msg}, in {time.perf_counter() - t:.2f} s")
+
     # ---- 4. main paths ---------------------------------------------------------
     states = out.states
     warm = engine.move(states)  # warm-up move
@@ -575,8 +805,8 @@ def main() -> None:
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t
     gaz_launches = counts()
-    want = {"tree_step": SCAN_MOVES * (spec.num_simulations + 1), "tree_step_v2": 0,
-            "gather_rows": 0}
+    want = {"tree_step": SCAN_MOVES * (spec.num_simulations + 1), "tree_step_rewards": 0,
+            "tree_step_v2": 0, "gather_rows": 0}
     if gaz_launches != want:
         fail(f"gaz main path launches {gaz_launches}, expected {want}")
     check_scan(engine, start_states, scan, end_states, SCAN_MOVES, "gaz main path")
@@ -589,16 +819,8 @@ def main() -> None:
 
     # kernel time beside its plain version and its bound, at the main path's
     # shapes (the kept full-width state of phase 3)
-    kept = check.kept
-    k_ms = time_kernel(kept)
-    p_ms = time_plain(kept)
-    spec_k, trees_k, sel_k, leaf_k, idx_k, ph_k = kept
-    after = trees_k.clone()
-    _, nsel = fused_tree_step(spec_k, after, sel_k, *leaf_k, idx_k, ph_k)
-    byts, flops = tree_step_work(kept, nsel, after)
-    t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    log(f"tree_step at sim {idx_k}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
+    k_ms, p_ms, bound_ms, bound_by, byts, flops = tree_step_numbers(check.kept)
+    log(f"tree_step at sim {check.kept[4]}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
         f"{bound_ms:.5f} ms ({byts} bytes, {flops} flops)")
 
     # 4b. the large-N path
@@ -611,7 +833,7 @@ def main() -> None:
     torch.cuda.synchronize()
     az_elapsed = time.perf_counter() - t
     az_launches = counts()
-    want = {"tree_step": 0, "tree_step_v2": AZ_SCAN_MOVES * (AZ_SIMS + 1),
+    want = {"tree_step": 0, "tree_step_rewards": 0, "tree_step_v2": AZ_SCAN_MOVES * (AZ_SIMS + 1),
             "gather_rows": AZ_SCAN_MOVES * AZ_SIMS}
     if az_launches != want:
         fail(f"az main path launches {az_launches}, expected {want}")
@@ -652,11 +874,89 @@ def main() -> None:
         f"{p3_ms:.4f} ms, library x[arange(B), idx] {l3_ms:.4f} ms, bound {bound3_ms:.5f} ms "
         f"({byts3} bytes)")
 
-    # ---- 5. where a move's device time goes -----------------------------------
-    log(f"phase 5 one profiled gaz move: "
-        f"{profile_move(engine, end_states, 1e3 * elapsed / SCAN_MOVES, ('tree_step_kernel',))}")
-    log(f"phase 5 one profiled az n={AZ_SIMS} move: "
-        f"{profile_move(az, az_end, az_ms_per_move, ('tree_step_v2_kernel', 'gather_rows_kernel'))}")
+    # 4c. Go 9x9 Gumbel MuZero: a warm-up move with every tree step beside
+    # its plain version, then move_scan
+    mz_cfg = default_config("go", **algorithm_preset("gmz"))
+    mz_net = init_network(create_network(mz_cfg, env.spec), seed=5)
+    mz = SelfPlayEngine(env, mz_cfg, mz_net, use_bf16=True, device="cuda", seed=5)
+    mz_spec = mz.spec
+    if not mz.is_muzero or mz.use_tree_kernel_v2:
+        fail("Go gmz did not take the MuZero search on tree step B1")
+    mz_check = TreeStepCheck(keep_sim=mz_spec.num_simulations // 2)
+    mz.tree_step = mz_check
+    t = time.perf_counter()
+    mz_warm = mz.move(mz.init_batch(BATCH))
+    torch.cuda.synchronize()
+    mz.tree_step = fused_tree_step
+    if mz_check.calls != mz_spec.num_simulations + 1 or mz_check.reward_calls:
+        fail(f"expected {mz_spec.num_simulations + 1} board-regime tree steps in a gmz move, saw "
+             f"{mz_check.calls} ({mz_check.reward_calls} in the reward regime)")
+    log(f"config: go 9x9 gmz n={mz_spec.num_simulations} net {mz_cfg.nn_num_blocks}x"
+        f"{mz_cfg.nn_num_hidden_channels} bf16, B={BATCH}, N={mz_spec.max_nodes}; warm-up move: "
+        f"{mz_check.calls} tree steps equal to the plain version, max |diff| "
+        f"{mz_check.max_abs_err:.3g}, in {time.perf_counter() - t:.2f} s")
+    mz_start = mz_warm.states
+    zero_counts()
+    t = time.perf_counter()
+    mz_scan, mz_end, _, _ = mz.move_scan(mz_start, num_moves=SCAN_MOVES)
+    torch.cuda.synchronize()
+    mz_elapsed = time.perf_counter() - t
+    mz_launches = counts()
+    want = {"tree_step": SCAN_MOVES * (mz_spec.num_simulations + 1), "tree_step_rewards": 0,
+            "tree_step_v2": 0, "gather_rows": 0}
+    if mz_launches != want:
+        fail(f"gmz main path launches {mz_launches}, expected {want}")
+    check_scan(mz, mz_start, mz_scan, mz_end, SCAN_MOVES, "gmz main path")
+    mz_steps_per_s = BATCH * SCAN_MOVES / mz_elapsed
+    mz_ms_per_move = 1e3 * mz_elapsed / SCAN_MOVES
+    log(f"phase 4c main path (gmz n={mz_spec.num_simulations}): move_scan {SCAN_MOVES} moves x "
+        f"{BATCH} games in {mz_elapsed:.3f} s: {mz_steps_per_s:.1f} env-steps/s, "
+        f"{mz_ms_per_move:.1f} ms/move; launches {mz_launches} (= {SCAN_MOVES} x "
+        f"{mz_spec.num_simulations + 1} board-regime tree steps); all actions legal; "
+        f"{int((mz_scan.resigned | mz_scan.ended).sum())} games finished")
+
+    # 4d. the Atari search: a warm-up, then timed searches
+    with torch.no_grad():
+        at_search(at_feats, at_legal, at_turns, at_gen)
+        torch.cuda.synchronize()
+        zero_counts()
+        t = time.perf_counter()
+        for _ in range(ATARI_SEARCHES):
+            at_res = at_search(at_feats, at_legal, at_turns, at_gen)
+        torch.cuda.synchronize()
+    at_elapsed = time.perf_counter() - t
+    at_launches = counts()
+    want = {"tree_step": 0, "tree_step_rewards": ATARI_SEARCHES * (ATARI_SIMS + 1),
+            "tree_step_v2": 0, "gather_rows": 0}
+    if at_launches != want:
+        fail(f"Atari search launches {at_launches}, expected {want}")
+    check_search_result(at_res, ATARI_BATCH, at_spec.action_size, "timed Atari search")
+    at_ms_per_search = 1e3 * at_elapsed / ATARI_SEARCHES
+    log(f"phase 4d Atari search (mz n={ATARI_SIMS}, B={ATARI_BATCH}): {ATARI_SEARCHES} searches in "
+        f"{at_elapsed:.3f} s: {at_ms_per_search:.1f} ms/search, "
+        f"{ATARI_BATCH * 1e3 / at_ms_per_search:.1f} searches/s over the batch; launches "
+        f"{at_launches} (= {ATARI_SEARCHES} x {ATARI_SIMS + 1} reward-regime tree steps)")
+
+    # B1' at the middle of the Atari search, beside its plain version and its
+    # bound
+    k4_ms, p4_ms, bound4_ms, bound4_by, byts4, flops4 = tree_step_numbers(at_check.kept)
+    log(f"tree_step (reward regime) at sim {at_check.kept[4]} of the Atari search: kernel "
+        f"{k4_ms:.4f} ms, plain {p4_ms:.3f} ms, bound {bound4_ms:.5f} ms ({byts4} bytes, "
+        f"{flops4} flops)")
+
+    # ---- 5. where the device time goes ----------------------------------------
+    line = profile_run(lambda: engine.move(end_states), 1e3 * elapsed / SCAN_MOVES,
+                       ("tree_step_kernel",))
+    log(f"phase 5 one profiled gaz move: {line}")
+    line = profile_run(lambda: az.move(az_end), az_ms_per_move,
+                       ("tree_step_v2_kernel", "gather_rows_kernel"))
+    log(f"phase 5 one profiled az n={AZ_SIMS} move: {line}")
+    line = profile_run(lambda: mz.move(mz_end), mz_ms_per_move, ("tree_step_kernel",))
+    log(f"phase 5 one profiled gmz move: {line}")
+    with torch.no_grad():
+        line = profile_run(lambda: at_search(at_feats, at_legal, at_turns, at_gen),
+                           at_ms_per_search, ("tree_step_kernel",), what="search")
+    log(f"phase 5 one profiled Atari search: {line}")
 
     result = {"kernels": [{
         "name": "tree_step",
@@ -668,7 +968,7 @@ def main() -> None:
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_by": bound_by,
         "library_ms": None,
     }, {
         "name": "tree_step_v2",
@@ -694,8 +994,22 @@ def main() -> None:
         "bound_ms": bound3_ms,
         "bound_by": "bytes",
         "library_ms": l3_ms,
+    }, {
+        "name": "tree_step_rewards",
+        "route": "cuda",
+        "source": "minizero_tpu_torch/csrc/tree_step.cu",
+        "replaces": "minizero_tpu/ops/tree_kernel.py:136 (reward regime)",
+        "launches": at_launches["tree_step_rewards"],
+        "max_abs_err": at_check.max_abs_err,
+        "ms": k4_ms,
+        "plain_ms": p4_ms,
+        "bound_ms": bound4_ms,
+        "bound_by": bound4_by,
+        "library_ms": None,
     }], "env_steps_per_s": steps_per_s, "ms_per_move": 1e3 * elapsed / SCAN_MOVES,
-        "az200_env_steps_per_s": az_steps_per_s, "az200_ms_per_move": az_ms_per_move}
+        "az200_env_steps_per_s": az_steps_per_s, "az200_ms_per_move": az_ms_per_move,
+        "gmz_env_steps_per_s": mz_steps_per_s, "gmz_ms_per_move": mz_ms_per_move,
+        "atari_mz50_ms_per_search": at_ms_per_search}
     print(json.dumps(result), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -1,15 +1,24 @@
 // Fused per-simulation MCTS tree step for a batch of search trees (Hopper,
 // sm_90a). Replaces the Pallas TPU kernel
 // minizero_tpu/ops/tree_kernel.py::_tree_step_kernel (wrapper
-// fused_tree_step) in the board-game regime: think_batch == 1, no in-tree
-// rewards, discount 1, no value rescale. Its contract is
-// minizero_tpu_torch/ops/tree_kernel.py::tree_step_reference:
+// fused_tree_step) for think_batch == 1, in both of its regimes:
 //
-//   1. expand the new leaf at slot s (node scalars, prior/logit/legal rows,
-//      the parent's child edge);
-//   2. back up the leaf value along the previous selection's path (one
-//      incremental-mean update per path node);
-//   3. root child statistics (visits, player-flipped q);
+//   - the board regime (AlphaZero, board-game MuZero): no in-tree rewards,
+//     discount 1, no value rescale;
+//   - the MuZero reward regime (Atari): the leaf's predicted reward is
+//     stored at the node, the backup discounts, q = reward + discount * mean,
+//     and with value_rescale q is min-max normalised to the tree's bounds.
+//
+// Its contract is minizero_tpu_torch/ops/tree_kernel.py::tree_step_reference:
+//
+//   1. expand the new leaf at slot s (node scalars, its reward, the
+//      prior/logit/legal rows, the parent's child edge);
+//   2. back up the leaf value: in the board regime every node of the
+//      previous selection's path takes the same value (one incremental-mean
+//      update per path node, lanes in parallel); otherwise one lane walks
+//      the parent pointers from the leaf to the root with
+//      u = reward[node] + discount * u between nodes (mcts.cpp:166-179);
+//   3. root child statistics (visits, normalised and player-flipped q);
 //   4. Gumbel sequential-halving tick: when every active candidate reached
 //      its budget, keep the top half by logit + sigma * q (pairwise rank,
 //      ties to the lower index) and extend the budget;
@@ -22,7 +31,10 @@
 // Design. One warp per game, four games per 128-thread block; the A actions
 // are strided over the 32 lanes, reductions are warp shuffles, and per-action
 // scratch rows live in shared memory (3 * A floats per warp). The tree arrays
-// are updated in place; the kernel allocates nothing.
+// are updated in place; the kernel allocates nothing. In the reward regime the
+// tree's value bounds (min and max q over the visited nodes, and their
+// count) are fixed after the backup, so they are reduced over the N nodes
+// once per step, not once per walk level.
 //
 // What bounds it. The least work is data-dependent: the rows that the walk
 // reads (children_index, prior, legal: 9 bytes per action) for each node on
@@ -35,13 +47,19 @@
 // dependent chain of global loads and shuffle reductions, so a game costs
 // (depth x one row round trip). The design keeps every game's walk inside
 // one warp (no inter-block traffic, no second pass) and lets 1024 warps in
-// flight hide the load latency of each other.
+// flight hide the load latency of each other. The Atari search (N = 51,
+// A = 18, B = 256) moves less (~1 MB a step) but has only 256 warps, two per
+// SM, and its backup is a serial chain of dependent loads (parent, reward,
+// visits, mean per level) as deep as the leaf: there latency is all of it.
 //
 // Numerics. Built with --fmad=false and IEEE logf/sqrtf/division so that each
 // multiply and add rounds like the plain PyTorch version's separate
 // operations; the sum of the children's q at a node is accumulated in double
 // and rounded once (as the plain version does), so it does not depend on the
-// order of summation. Integer outputs then match the plain version exactly.
+// order of summation. The rescale keeps the plain version's order
+// ((q - lo) / max(hi - lo, 1e-8), then 2 * s - 1, then the clamp), and the
+// backup's walk is serial, as the plain version's is. Integer outputs then
+// match the plain version exactly.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -57,9 +75,10 @@ struct Args {
   int B, N, A, s, phase;
   // search spec
   int use_gumbel, flip, init_q_average, num_sims;
-  float puct_base, puct_init, log2_m0, sigma_visit_c, sigma_scale_c;
+  int use_rewards, value_rescale;
+  float puct_base, puct_init, log2_m0, sigma_visit_c, sigma_scale_c, discount;
   // tree, updated in place
-  float *visits, *mean, *value;  // [B, N]
+  float *visits, *mean, *value, *reward;  // [B, N]
   uint8_t *expanded, *terminal;  // [B, N]
   int *parent, *afp, *to_play;   // [B, N]
   int *ci;                       // [B, N, A]
@@ -78,6 +97,7 @@ struct Args {
   const uint8_t *lterm;                  // [B]
   const float *lvalue;                   // [B]
   const int *lturn;                      // [B]
+  const float *lreward;                  // [B], read only with use_rewards
   // next selection
   int *nparent, *naction, *nleaf;  // [B]
   uint8_t *nnew;                   // [B]
@@ -86,6 +106,11 @@ struct Args {
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
@@ -153,6 +178,7 @@ tree_step_kernel(const Args p) {
   float* vis = p.visits + (size_t)b * N;
   float* mean = p.mean + (size_t)b * N;
   float* value = p.value + (size_t)b * N;
+  float* reward = p.reward + (size_t)b * N;
   uint8_t* expanded = p.expanded + (size_t)b * N;
   uint8_t* terminal = p.terminal + (size_t)b * N;
   int* to_play = p.to_play + (size_t)b * N;
@@ -181,27 +207,84 @@ tree_step_kernel(const Args p) {
       p.afp[(size_t)b * N + s] = sa;
       to_play[s] = p.lturn[b];
       value[s] = p.lvalue[b];
+      if (p.use_rewards) reward[s] = p.lreward[b];
       p.num_nodes[b] = max(p.num_nodes[b], s + 1);
       if (sp >= 0 && sp < N && sa >= 0 && sa < A) ci[(size_t)sp * A + sa] = s;
     }
   }
 
-  // ---- 2. back up along the path (discount 1, no rewards) -----------------
+  // ---- 2. back up ------------------------------------------------------------
+  const bool one_shot = !p.use_rewards && p.discount == 1.0f;
   if (en) {
     const int leaf = snew ? s : p.sleaf[b];
     float v = 0.0f;
     if (snew) v = p.lvalue[b];
     else if (leaf >= 0) v = value[leaf];
-    for (int n = lane; n < N; n += 32) {
-      if (p.spath[(size_t)b * N + n] != 0 || n == leaf) {
-        const float c = vis[n] + 1.0f;
-        vis[n] = c;
-        mean[n] = mean[n] + (v - mean[n]) / fmaxf(c, 1.0f);
+    if (one_shot) {
+      // every path node receives the same value: one update per node
+      for (int n = lane; n < N; n += 32) {
+        if (p.spath[(size_t)b * N + n] != 0 || n == leaf) {
+          const float c = vis[n] + 1.0f;
+          vis[n] = c;
+          mean[n] = mean[n] + (v - mean[n]) / fmaxf(c, 1.0f);
+        }
+      }
+    } else if (lane == 0) {
+      // leaf -> root along the parent pointers (this step's expansion
+      // included), discounting through each node's reward; a path has at
+      // most N nodes
+      const int* par = p.parent + (size_t)b * N;
+      float u = v;
+      int cur = leaf;
+      for (int it = 0; it < N && cur >= 0; ++it) {
+        const float c = vis[cur] + 1.0f;
+        vis[cur] = c;
+        mean[cur] = mean[cur] + (u - mean[cur]) / fmaxf(c, 1.0f);
+        u = reward[cur] + p.discount * u;
+        cur = par[cur];
       }
     }
   }
   for (int n = lane; n < N; n += 32) npath[n] = 0;
   __syncwarp();
+
+  // per-node raw q and, with value_rescale, the tree's value bounds over the
+  // visited nodes (mcts.cpp:40-53, 219-228); fixed for the rest of the step
+  const bool use_qnode = p.use_rewards || p.discount != 1.0f;
+  auto qnode = [&](int n) -> float {
+    return use_qnode ? reward[n] + p.discount * mean[n] : mean[n];
+  };
+  float q_lo = 0.0f, q_hi = 0.0f;
+  bool q_enough = false;
+  if (p.value_rescale) {
+    float lo = 3.4e38f, hi = kNegInf;
+    int visited = 0;
+    for (int n = lane; n < N; n += 32) {
+      if (vis[n] > 0.0f) {
+        const float q = qnode(n);
+        lo = fminf(lo, q);
+        hi = fmaxf(hi, q);
+        visited += 1;
+      }
+    }
+    q_lo = warp_min(lo);
+    q_hi = warp_max(hi);
+    q_enough = warp_sum(visited) >= 2;
+  }
+  // value rescale (1 while fewer than 2 nodes are visited), then the player
+  // flip (mcts._normalize_q)
+  auto norm_q = [&](float q, bool flip) -> float {
+    if (p.value_rescale) {
+      if (q_enough) {
+        float sc = (q - q_lo) / fmaxf(q_hi - q_lo, 1e-8f);
+        sc = 2.0f * sc - 1.0f;
+        q = fminf(fmaxf(sc, -1.0f), 1.0f);
+      } else {
+        q = 1.0f;
+      }
+    }
+    return flip ? -q : q;
+  };
 
   // ---- 3-5a. root statistics, halving tick, Gumbel root step -------------
   const bool flip_root = p.flip && to_play[0] == 2;
@@ -223,9 +306,7 @@ tree_step_kernel(const Args p) {
     for (int a = lane; a < A; a += 32) {
       const int c = ci[a];
       const float cv = row_a[a];
-      float q = c >= 0 ? mean[c] : 0.0f;
-      if (flip_root) q = -q;
-      const float q_vis = (c >= 0 && cv > 0.0f) ? q : 0.0f;
+      const float q_vis = (c >= 0 && cv > 0.0f) ? norm_q(qnode(c), flip_root) : 0.0f;
       float score = logit[a] + sigma * q_vis;
       if (!(legal[a] && cv > 0.0f)) score = kNegInf;
       row_b[a] = gactive[a] ? score : kNegInf;
@@ -292,8 +373,7 @@ tree_step_kernel(const Args p) {
     for (int a = lane; a < A; a += 32) {
       const int c = ci_row[a];
       const float cv = c >= 0 ? vis[c] : 0.0f;
-      float q = c >= 0 ? mean[c] : 0.0f;
-      if (flip_node) q = -q;
+      const float q = (c >= 0 && cv > 0.0f) ? norm_q(qnode(c), flip_node) : 0.0f;
       row_a[a] = cv;
       row_b[a] = q;
       if (c >= 0 && cv > 0.0f) {
@@ -346,21 +426,27 @@ tree_step_kernel(const Args p) {
 extern "C" int tree_step_launch(
     int B, int N, int A, int s, int phase,
     int use_gumbel, int flip, int init_q_average, int num_sims,
+    int use_rewards, int value_rescale,
     float puct_base, float puct_init, float log2_m0, float sigma_visit_c, float sigma_scale_c,
-    void* visits, void* mean, void* value, void* expanded, void* terminal,
+    float discount,
+    void* visits, void* mean, void* value, void* reward, void* expanded, void* terminal,
     void* parent, void* afp, void* to_play, void* ci, void* prior, void* logit, void* legal,
     void* gactive, void* gm, void* gbudget, void* num_nodes,
     void* sparent, void* saction, void* sleaf, void* snew, void* spath,
     void* lpolicy, void* llogit, void* llegal, void* lterm, void* lvalue, void* lturn,
+    void* lreward,
     void* nparent, void* naction, void* nleaf, void* nnew, void* npath,
     void* stream) {
   Args p;
   p.B = B; p.N = N; p.A = A; p.s = s; p.phase = phase;
   p.use_gumbel = use_gumbel; p.flip = flip; p.init_q_average = init_q_average;
   p.num_sims = num_sims;
+  p.use_rewards = use_rewards; p.value_rescale = value_rescale;
   p.puct_base = puct_base; p.puct_init = puct_init; p.log2_m0 = log2_m0;
   p.sigma_visit_c = sigma_visit_c; p.sigma_scale_c = sigma_scale_c;
+  p.discount = discount;
   p.visits = (float*)visits; p.mean = (float*)mean; p.value = (float*)value;
+  p.reward = (float*)reward;
   p.expanded = (uint8_t*)expanded; p.terminal = (uint8_t*)terminal;
   p.parent = (int*)parent; p.afp = (int*)afp; p.to_play = (int*)to_play;
   p.ci = (int*)ci; p.prior = (float*)prior; p.logit = (float*)logit;
@@ -372,6 +458,7 @@ extern "C" int tree_step_launch(
   p.lpolicy = (const float*)lpolicy; p.llogit = (const float*)llogit;
   p.llegal = (const uint8_t*)llegal; p.lterm = (const uint8_t*)lterm;
   p.lvalue = (const float*)lvalue; p.lturn = (const int*)lturn;
+  p.lreward = (const float*)lreward;
   p.nparent = (int*)nparent; p.naction = (int*)naction; p.nleaf = (int*)nleaf;
   p.nnew = (uint8_t*)nnew; p.npath = (uint8_t*)npath;
 

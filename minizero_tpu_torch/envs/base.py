@@ -108,6 +108,16 @@ class Env:
         """f32[B, H, W, C] network input planes."""
         raise NotImplementedError
 
+    def action_features(self, action: torch.Tensor) -> torch.Tensor:
+        """f32[B, 1, hidden_H, hidden_W]: the action planes fed to the MuZero
+        dynamics net, NCHW (reference ``BaseEnv::getActionFeatures``; a
+        one-hot plane for board games, ``tictactoe.cpp:99-104``). An action
+        outside the board (Go's pass) gives an all-zero plane."""
+        h, w = self.spec.hidden_height, self.spec.hidden_width
+        cells = torch.arange(h * w, device=action.device)
+        plane = (cells[None, :] == action.long()[:, None]).to(torch.float32)
+        return plane.reshape(-1, 1, h, w)
+
     # -- symmetry -----------------------------------------------------------
     def rotate_features_batch(self, feats: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
         """Per-game feature rotation ([B, H, W, C], i32[B])."""

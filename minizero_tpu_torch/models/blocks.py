@@ -89,3 +89,31 @@ class DiscreteValueHead(nn.Module):
         x = F.relu(self.bn(self.conv(x)))
         x = F.relu(self.fc1(x.flatten(1)))
         return self.fc2(x)
+
+
+def scale_hidden_state(hidden_state: torch.Tensor) -> torch.Tensor:
+    """Min-max scale each sample's hidden state to [0, 1], with the range
+    widened by 1e-5 where it is below 1e-5 (reference
+    ``muzero_network.py:154-164``; JAX ``blocks.py:131-182``). Forward only:
+    the JAX package's arg-index min/max backward belongs with the trainer,
+    which is not ported yet (ROADMAP.md)."""
+    flat = hidden_state.reshape(hidden_state.shape[0], -1)
+    mn = flat.amin(-1, keepdim=True)
+    mx = flat.amax(-1, keepdim=True)
+    s = mx - mn
+    s = torch.where(s < 1e-5, s + 1e-5, s)
+    return ((flat - mn) / s).reshape(hidden_state.shape)
+
+
+def same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """Zero-pad an NCHW map as flax's (TensorFlow's) "SAME" padding does for
+    a ``kernel`` x ``kernel`` window at ``stride``: the total padding
+    ``max((ceil(n / stride) - 1) * stride + kernel - n, 0)`` per dimension,
+    its smaller half before and the larger after. For a stride-2 3x3 window
+    on an even size that is 0 before and 1 after, which ``padding=1`` of a
+    torch conv or pool (1 on both sides) does not give."""
+    pads = []
+    for n in (x.shape[3], x.shape[2]):  # F.pad's order: last dimension first
+        total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)

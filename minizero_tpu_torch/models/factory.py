@@ -1,6 +1,7 @@
 """Network factory (port of ``minizero_tpu/models/factory.py``; reference
-``minizero/network/py/create_network.py:6-63``). AlphaZero only: MuZero is a
-later slice of the port (ROADMAP.md)."""
+``minizero/network/py/create_network.py:6-63``): "alphazero", "muzero", and
+the Atari MuZero variant when the env is Atari (the reference keys on
+``"atari" in game_name``)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from torch import nn
 
 from minizero_tpu_torch.envs.base import EnvSpec
 from minizero_tpu_torch.models.alphazero import AlphaZeroNetwork
+from minizero_tpu_torch.models.muzero import MuZeroNetwork
 
 
 def create_network(cfg, spec: EnvSpec) -> nn.Module:
@@ -29,8 +31,20 @@ def create_network(cfg, spec: EnvSpec) -> nn.Module:
             discrete_value_size=spec.discrete_value_size,
         )
     if nn_type == "muzero":
-        raise NotImplementedError(
-            "MuZero is not ported to minizero_tpu_torch yet (see ROADMAP.md)")
+        return MuZeroNetwork(
+            num_input_channels=spec.num_input_channels,
+            input_height=spec.input_height,
+            input_width=spec.input_width,
+            num_hidden_channels=cfg.nn_num_hidden_channels,
+            hidden_height=spec.hidden_height,
+            hidden_width=spec.hidden_width,
+            num_action_feature_channels=spec.num_action_feature_channels,
+            num_blocks=cfg.nn_num_blocks,
+            action_size=spec.action_size,
+            num_value_hidden_channels=cfg.nn_num_value_hidden_channels,
+            discrete_value_size=spec.discrete_value_size,
+            atari_mode="atari" in spec.name,
+        )
     raise ValueError(f"unknown nn_type_name {cfg.nn_type_name!r}")
 
 

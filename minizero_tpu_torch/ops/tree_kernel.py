@@ -9,9 +9,11 @@ One simulation's whole tree transition for a batch of trees:
 ``fused_tree_step`` launches the hand-written CUDA kernel
 ``csrc/tree_step.cu`` on CUDA tensors and calls ``tree_step_reference``, the
 plain PyTorch version of the same contract built on ``search/mcts.py`` and
-``search/gumbel.py``, on CPU tensors. The kernel covers the board-game regime
-(think_batch 1, no in-tree rewards, discount 1, no value rescale); the MuZero
-regime of the JAX kernel is a later slice (ROADMAP.md, queue B).
+``search/gumbel.py``, on CPU tensors. Both regimes of the JAX kernel are
+covered (think_batch 1): the board regime (no in-tree rewards, discount 1, no
+value rescale) and the MuZero reward regime (``leaf_reward`` given, or a
+discount other than 1, or value rescale), which stores the leaf's reward,
+backs up with discounting and rescales Q to the tree's value bounds.
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ def tree_step_reference(
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = [_I] * 9 + [_F] * 5 + [_P] * 33  # see tree_step_launch
+_ARGTYPES = [_I] * 11 + [_F] * 6 + [_P] * 35  # see tree_step_launch
 
 
 def _library():
@@ -96,6 +98,13 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
         raise ValueError(f"fused_tree_step: {name} is not contiguous")
 
 
+def uses_reward_regime(spec: SearchSpec, leaf_reward: Optional[torch.Tensor]) -> bool:
+    """Whether a step runs the MuZero reward regime (the JAX kernel's
+    ``use_rewards`` or a discount other than 1, or value rescale) rather
+    than the board regime."""
+    return leaf_reward is not None or spec.discount != 1.0 or spec.value_rescale
+
+
 def fused_tree_step(
     spec: SearchSpec,
     trees: Tree,
@@ -110,18 +119,16 @@ def fused_tree_step(
     On CUDA tensors the CUDA kernel updates ``trees`` in place (the JAX
     kernel aliased its tree inputs to its outputs) and the returned tree is
     the same object; on CPU tensors this is ``tree_step_reference``.
-    ``fused_tree_step.launches`` counts the kernel's launches."""
+    ``fused_tree_step.launches`` counts the kernel's launches in the board
+    regime, ``fused_tree_step.launches_rewards`` those in the reward regime
+    (``uses_reward_regime``)."""
     if not supports_fused_tree_step(spec):
         raise NotImplementedError("fused_tree_step: think_batch > 1 is not ported (ROADMAP.md)")
-    if leaf_reward is not None or spec.value_rescale or spec.discount != 1.0:
-        raise NotImplementedError(
-            "fused_tree_step: the reward / discount / value-rescale (MuZero) regime "
-            "is not ported yet (ROADMAP.md, queue B)")
     device = trees.visits.device
     if device.type == "cpu":
         return tree_step_reference(
             spec, trees, sel, leaf_policy, leaf_logit, leaf_legal, leaf_terminal,
-            leaf_value, leaf_turn, node_idx, phase)
+            leaf_value, leaf_turn, node_idx, phase, leaf_reward=leaf_reward)
     if device.type != "cuda":
         raise ValueError(f"fused_tree_step: unsupported device {device}")
 
@@ -134,7 +141,8 @@ def fused_tree_step(
     f32, i32, u8 = torch.float32, torch.int32, torch.bool
     inputs = [
         ("visits", trees.visits, f32, (b, n)), ("mean", trees.mean, f32, (b, n)),
-        ("value", trees.value, f32, (b, n)), ("expanded", trees.expanded, u8, (b, n)),
+        ("value", trees.value, f32, (b, n)), ("reward", trees.reward, f32, (b, n)),
+        ("expanded", trees.expanded, u8, (b, n)),
         ("terminal", trees.terminal, u8, (b, n)), ("parent", trees.parent, i32, (b, n)),
         ("action_from_parent", trees.action_from_parent, i32, (b, n)),
         ("to_play", trees.to_play, i32, (b, n)),
@@ -154,6 +162,8 @@ def fused_tree_step(
     ]
     for name, x, dtype, shape in inputs:
         _check(name, x, dtype, shape, device)
+    if leaf_reward is not None:
+        _check("leaf_reward", leaf_reward, f32, (b,), device)
     nsel = NextSelection(
         parent=torch.empty((b,), dtype=i32, device=device),
         action=torch.empty((b,), dtype=i32, device=device),
@@ -167,17 +177,22 @@ def fused_tree_step(
     rc = launch(
         b, n, a, int(node_idx), int(phase),
         int(spec.use_gumbel), int(spec.flip_player2_value), int(spec.init_q_average),
-        int(spec.num_simulations),
+        int(spec.num_simulations), int(leaf_reward is not None), int(spec.value_rescale),
         spec.puct_base, spec.puct_init, math.log2(m0) if m0 > 0 else 0.0,
-        spec.gumbel_sigma_visit_c, spec.gumbel_sigma_scale_c,
+        spec.gumbel_sigma_visit_c, spec.gumbel_sigma_scale_c, spec.discount,
         *[x.data_ptr() for _, x, _, _ in inputs],
+        leaf_reward.data_ptr() if leaf_reward is not None else None,
         *[x.data_ptr() for x in outputs],
         torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"fused_tree_step: CUDA kernel launch failed (cudaError {rc})")
-    fused_tree_step.launches += 1
+    if uses_reward_regime(spec, leaf_reward):
+        fused_tree_step.launches_rewards += 1
+    else:
+        fused_tree_step.launches += 1
     return trees, nsel
 
 
 fused_tree_step.launches = 0
+fused_tree_step.launches_rewards = 0

@@ -1,20 +1,24 @@
 """Self-play engine: batched env + MCTS + network on one device (port of
-``minizero_tpu/selfplay/engine.py``, the AlphaZero kernel paths).
+``minizero_tpu/selfplay/engine.py``, its kernel paths).
 
 B independent games advance in lock-step: one MCTS simulation for all games
 per network forward, ``num_simulations + 1`` forwards per move (reference
 ActorGroup, ``minizero/actor/actor_group.cpp``). Each simulation picks the
 selected parent's state, steps the env, evaluates the leaf, then runs ONE
 fused tree step: the CUDA kernel on the card, its plain PyTorch version on
-the CPU. Two loops, dispatched as in the JAX engine:
+the CPU. Three loops, dispatched as in the JAX engine:
 
-- trees with ``max_nodes < 48`` (e.g. Gumbel n=16): ``[B, N, A]`` trees on
-  ``ops/tree_kernel.py`` (kernel B1), node states in ``[B, N, ...]``
-  buffers beside the tree;
+- AlphaZero trees with ``max_nodes < 48`` (e.g. Gumbel n=16): ``[B, N, A]``
+  trees on ``ops/tree_kernel.py`` (kernel B1), node states in
+  ``[B, N, ...]`` buffers beside the tree;
 - plain AlphaZero PUCT with ``max_nodes >= 48`` (e.g. n=200): node-indexed
   packed trees on ``ops/tree_kernel_v2.py`` (kernel B2), node states packed
   into one ``[B, N, W]`` int32 blob (``ops/state_blob.py``) whose parent row
-  is fetched by ``ops/gather_rows.py`` (kernel B3).
+  is fetched by ``ops/gather_rows.py`` (kernel B3);
+- MuZero (a network with ``recurrent_inference``), at any tree size: the
+  search of ``selfplay/muzero_search.py`` on kernel B1, hidden states in a
+  ``[B, N, ...]`` buffer; the env is consulted at the root only, and no
+  feature rotation is drawn.
 
 Per move the engine returns what the reference records per move
 (``actor/base_actor.cpp:59-66``): the search policy P, the root mean value V,
@@ -23,8 +27,7 @@ planes. ``move_scan`` plays several moves with the finished-game bookkeeping
 (resign gating, the max-move cap, slot resets) of the JAX scan, as a Python
 loop over moves. ``search_trees`` returns the finished trees of one search.
 
-Still to port (ROADMAP.md): the think-batch loop, the timed console search,
-MuZero.
+Still to port (ROADMAP.md): the think-batch loop, the timed console search.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from minizero_tpu_torch.ops.tree_kernel_v2 import (
 from minizero_tpu_torch.search import gumbel as gz
 from minizero_tpu_torch.search import mcts
 from minizero_tpu_torch.search.mcts import SearchSpec, Tree
+from minizero_tpu_torch.selfplay.muzero_search import decide, make_muzero_search
 from minizero_tpu_torch.utils.bitpack import pack_planes
 from minizero_tpu_torch.utils.transforms import from_discrete_value
 
@@ -119,8 +123,10 @@ class ScanMoves(NamedTuple):
 class SelfPlayEngine:
     """Batched self-play on one device.
 
-    ``network`` is an AlphaZero ``nn.Module`` (``models/factory.py``); the
-    engine moves it to ``device`` and evaluates it in ``torch.bfloat16``
+    ``network`` is an AlphaZero or MuZero ``nn.Module``
+    (``models/factory.py``; MuZero is recognised by its
+    ``recurrent_inference``); the engine moves it to ``device`` and
+    evaluates it in ``torch.bfloat16``
     (``use_bf16``, the JAX engine's default) or float32 — tree statistics
     stay float32. ``device`` defaults to CUDA and raises when there is no
     card; the CPU is used only when asked for. Random draws (root noise,
@@ -137,15 +143,18 @@ class SelfPlayEngine:
         self.device = resolve_device(device)
         self.network = network.to(self.device).eval()
         self.spec = search_spec_from_config(cfg, env.spec, eval_mode=eval_mode)
-        if type(env).reward is not Env.reward:
+        self.is_muzero = callable(getattr(network, "recurrent_inference", None))
+        if not self.is_muzero and type(env).reward is not Env.reward:
             raise NotImplementedError("envs with in-tree rewards are not ported yet (ROADMAP.md)")
         # large-N plain AlphaZero runs on the node-indexed v2 tree step (O(A)
-        # per walk step); small trees (Gumbel n=16) stay on v1
-        self.use_tree_kernel_v2 = (supports_fused_tree_step_v2(self.spec)
+        # per walk step); small trees (Gumbel n=16) stay on v1, and MuZero
+        # always does
+        self.use_tree_kernel_v2 = (not self.is_muzero and supports_fused_tree_step_v2(self.spec)
                                    and (self.spec.max_nodes >= 48 or _force_kernel_v2))
         if not self.use_tree_kernel_v2 and not supports_fused_tree_step(self.spec):
             raise NotImplementedError("think_batch > 1 is not ported yet (ROADMAP.md)")
-        self.use_rotation = cfg.actor_use_random_rotation_features and env.num_rotations() > 1
+        self.use_rotation = (cfg.actor_use_random_rotation_features and not self.is_muzero
+                             and env.num_rotations() > 1)
         self.compute_dtype = torch.bfloat16 if use_bf16 else torch.float32
         self._infer_net = (copy.deepcopy(self.network).to(self.compute_dtype)
                            if use_bf16 else self.network)
@@ -158,6 +167,13 @@ class SelfPlayEngine:
         self.tree_step_v2 = fused_tree_step_v2
         self.gather_rows = gather_rows
         self._blob = None  # the large-N loop's [B, N, W] state blob, reused across moves
+        self._muzero = None
+        if self.is_muzero:
+            self._muzero = make_muzero_search(
+                self._infer_net, self.spec, env.action_features, env.spec.num_players,
+                discrete_value=env.spec.discrete_value_size > 1,
+                compute_dtype=self.compute_dtype,
+                resign_threshold=cfg.actor_resign_threshold)
 
     # ------------------------------------------------------------- env batch
     def init_batch(self, batch_size: int, generator: Optional[torch.Generator] = None):
@@ -326,6 +342,9 @@ class SelfPlayEngine:
 
     def _search(self, states, turns, feats, generator) -> Tree:
         """Root evaluation and the whole sim loop; the finished trees."""
+        if self.is_muzero:
+            self._muzero.tree_step = self.tree_step
+            return self._muzero.search_trees(feats, self.env.legal_mask(states), turns, generator)
         trees = self._az_root_trees(feats, self.env.legal_mask(states), turns, generator)
         if self.use_tree_kernel_v2:
             return self._kernel_sim_loop_v2(trees, states, generator)
@@ -341,21 +360,7 @@ class SelfPlayEngine:
                             generator or self.generator)
 
     def _decide(self, trees: Tree, temperature: float, generator):
-        spec = self.spec
-        if spec.use_gumbel:
-            if spec.select_by_count:
-                action = gz.decide_action(spec, trees)
-            else:
-                action = mcts.select_action_by_softmax_count(spec, trees, temperature, generator)
-            policy_target = gz.improved_policy_target(spec, trees)
-        else:
-            if spec.select_by_count:
-                action = mcts.select_action_by_max_count(trees)
-            else:
-                action = mcts.select_action_by_softmax_count(spec, trees, temperature, generator)
-            policy_target = mcts.mcts_policy_target(trees)
-        resign = mcts.is_resign(spec, trees, action, self.cfg.actor_resign_threshold)
-        return action, policy_target, trees.mean[:, 0], resign
+        return decide(self.spec, trees, temperature, self.cfg.actor_resign_threshold, generator)
 
     @torch.no_grad()
     def move(self, states, temperature: float = 1.0,

@@ -126,8 +126,8 @@ def _root_trees(use_gumbel, seed, regime="board"):
 @pytest.mark.parametrize("regime", ["board", "atari"])
 @pytest.mark.parametrize("use_gumbel", [True, False])
 def test_tree_step_reference_matches_jax_kernel(use_gumbel, regime):
-    """Board regime (the CUDA kernel's) and the MuZero Atari regime (in-tree
-    rewards; only the plain version is ported so far)."""
+    """Board regime and the MuZero Atari regime (in-tree rewards, discount,
+    value rescale); the CUDA kernel covers both."""
     atari = regime == "atari"
     jspec, tspec, jt, tt = _root_trees(use_gumbel, seed=11 + use_gumbel, regime=regime)
     j_step = jax.jit(lambda trees, sel, *args, leaf_reward=None: j_fused_tree_step(
@@ -187,20 +187,30 @@ def test_tree_step_reference_matches_jax_kernel(use_gumbel, regime):
 
 
 def test_fused_tree_step_on_cpu_takes_the_plain_path():
-    _, tspec, _, tt = _root_trees(True, seed=5)
-    rng = np.random.default_rng(7)
-    li = _to_torch(_leaf_inputs(rng))
-    sel = tmcts.empty_selection(tspec, B, "cpu")
-    before = fused_tree_step.launches
-    want_t, want_s = tree_step_reference(tspec, tt, sel, *li, 0, 0)
-    got_t, got_s = fused_tree_step(tspec, tt, sel, *li, 0, 0)
-    for name in FIELDS:
-        assert torch.equal(getattr(want_t, name), getattr(got_t, name)), name
-    for name in ("parent", "action", "leaf", "is_new", "path"):
-        assert torch.equal(getattr(want_s, name), getattr(got_s, name)), name
-    assert fused_tree_step.launches == before  # no kernel on CPU tensors
-    with pytest.raises(NotImplementedError):
-        fused_tree_step(tspec, tt, sel, *li, 1, 1, leaf_reward=torch.zeros(B))
-    with pytest.raises(NotImplementedError):
-        fused_tree_step(tmcts.SearchSpec(action_size=A, num_simulations=SIMS, value_rescale=True),
-                        tt, sel, *li, 1, 1)
+    """On CPU tensors the wrapper is the plain version, in the board regime
+    and in the reward regime (leaf rewards, discount, value rescale), and
+    launches no kernel."""
+    before = (fused_tree_step.launches, fused_tree_step.launches_rewards)
+    for regime in ("board", "atari"):
+        _, tspec, _, tt = _root_trees(True, seed=5, regime=regime)
+        rng = np.random.default_rng(7)
+        sel = tmcts.empty_selection(tspec, B, "cpu")
+        for sim in range(4):
+            li = _to_torch(_leaf_inputs(rng))
+            reward = None
+            if regime == "atari":
+                assert tspec.value_rescale and tspec.discount != 1.0
+                reward = torch.from_numpy(rng.uniform(-1.0, 1.0, size=B).astype(np.float32))
+            phase = 0 if sim == 0 else 1
+            want_t, want_s = tree_step_reference(tspec, tt, sel, *li, sim, phase,
+                                                 leaf_reward=reward)
+            got_t, got_s = fused_tree_step(tspec, tt, sel, *li, sim, phase, leaf_reward=reward)
+            for name in FIELDS:
+                assert torch.equal(getattr(want_t, name), getattr(got_t, name)), (regime, sim, name)
+            for name in ("parent", "action", "leaf", "is_new", "path"):
+                assert torch.equal(getattr(want_s, name), getattr(got_s, name)), (regime, sim, name)
+            tt, sel = got_t, got_s
+        if regime == "atari":  # the rewards reached the tree
+            assert bool((tt.reward != 0).any())
+    # no kernel on CPU tensors
+    assert (fused_tree_step.launches, fused_tree_step.launches_rewards) == before
