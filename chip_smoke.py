@@ -154,52 +154,82 @@ class TreeStepCheck:
 
 def tree_step_work(kept, nsel, trees_after):
     """(bytes, flops) that one tree step must move / do for these inputs:
-    each input read once and each output written once, counting only what
-    this run's data needs (the rows of new leaves, the path nodes backed
-    up, the root row, the rows of the nodes the walk passes through). In
-    the reward regime also the leaf rewards, the reward of each backed-up
-    node and of each child read, and one pass over the visits, means and
-    rewards of the N nodes for the tree's value bounds."""
-    spec, trees, sel, leaf, _, _, leaf_reward = kept
+    each input element read once and each output written once, counting
+    only what this run's data needs (the rows of new leaves, the root row,
+    the rows of the nodes the walk descends through). A node's statistics
+    (visits and mean, and its reward in the reward regime) are read once,
+    if the step looks at the node at all: a node backed up, the root, a
+    root child, a node the walk descends through or one of its children,
+    and with value rescale every node of the tree for its value bounds
+    (the visits of every node, the mean and reward of the visited ones).
+    The new leaf's statistics are outputs only."""
+    spec, trees, sel, leaf, node_idx, phase, leaf_reward = kept
     from minizero_tpu_torch.ops.tree_kernel import uses_reward_regime
 
     rewards = uses_reward_regime(spec, leaf_reward)
     b, n = trees.visits.shape
     a = spec.action_size
+    rows = torch.arange(b, device=trees.visits.device)
     new = int(sel.is_new.sum())
-    path_nodes = int(sel.path.sum()) + new
-    byts = b * (4 * 3 + 1 + n)            # selection in
-    byts += b * (1 + 4 + 4)               # leaf terminal, value, turn
-    byts += new * a * 9                   # policy/logit/legal rows of new leaves
-    byts += new * (a * 9 + 2 + 4 * 4 + 4)  # the new node's row, scalars, parent edge
-    byts += path_nodes * 16               # backup: visits and mean, read and written
-    if rewards:
-        byts += b * 4 + new * 4           # leaf rewards in, the new nodes' rewards out
-        byts += path_nodes * 8            # the serial backup reads reward and parent
-        if spec.value_rescale:
-            byts += b * n * 12            # value bounds: visits, mean, reward of every node
-    # root statistics (children_index, logit, legal, gumbel_active; the
-    # root children's visits and means; gumbel state)
-    root_children = int((trees_after.children_index[:, 0] >= 0).sum())
-    byts += b * a * 10 + root_children * 8 + b * 16
-    halved = int((trees_after.gumbel_sample_size != trees.gumbel_sample_size).sum())
-    byts += halved * a
-    # PUCT rows read by the walk: nodes on the next path that were descended
-    # through (not the leaf; not the root when the Gumbel root step chose),
-    # plus the visits and mean of each of their children
+    backed = sel.path.clone() if phase > 0 else torch.zeros_like(sel.path)
+    revisit = (phase > 0) & ~sel.is_new & (sel.leaf >= 0)
+    backed[rows[revisit], sel.leaf[revisit].long()] = True
+    if phase > 0:
+        backed[rows[sel.is_new], node_idx] = True
+    path_nodes = int(backed.sum())
+
+    def children_of(mask):
+        ci = trees_after.children_index.long()
+        hit = (ci >= 0) & mask[:, :, None]
+        out = torch.zeros((b, n + 1), dtype=torch.bool, device=mask.device)
+        out.scatter_(1, torch.where(hit, ci, n).view(b, -1), True)
+        return out[:, :n]
+
+    # the nodes the walk descends through: the next path less its leaf, and
+    # less the root when the Gumbel root step chose
     walked = nsel.path.clone()
-    rows = torch.arange(b, device=walked.device)
     has_leaf = nsel.leaf >= 0
     walked[rows[has_leaf], nsel.leaf[has_leaf].long()] = False
     if spec.use_gumbel:
         walked[:, 0] = False
+    root = torch.zeros_like(walked)
+    root[:, 0] = True
+    looked = backed | root | children_of(root) | walked | children_of(walked)
+    seen_visits = looked.clone()
+    seen_q = looked.clone()
+    if spec.value_rescale:
+        slots = torch.arange(n, device=looked.device)[None, :]
+        seen_visits |= slots < trees_after.num_nodes[:, None]
+        seen_q |= trees_after.visits > 0
+    if phase > 0:  # the new leaf's statistics are written, not read
+        for m in (seen_visits, seen_q):
+            m[rows[sel.is_new], node_idx] = False
+    node_reads = int(seen_visits.sum()) + int(seen_q.sum()) * (2 if rewards else 1)
+
+    byts = b * (4 * 3 + 1 + n)            # selection in
+    byts += b * (1 + 4 + 4)               # leaf terminal, value, turn
+    byts += new * a * 9                   # policy/logit/legal rows of new leaves
+    byts += new * (a * 9 + 2 + 4 * 4 + 4)  # the new node's row, scalars, parent edge
+    byts += node_reads * 4                # node statistics, each read once
+    byts += path_nodes * 8                # backup: visits and mean written
+    if rewards:
+        byts += b * 4 + new * 4           # leaf rewards in, the new nodes' rewards out
+        byts += path_nodes * 4            # the serial backup follows the parent pointers
+    # root statistics (children_index, logit, legal, gumbel_active; gumbel state)
+    root_children = int(children_of(root).sum())
+    byts += b * a * 10 + b * 16
+    halved = int((trees_after.gumbel_sample_size != trees.gumbel_sample_size).sum())
+    byts += halved * a
+    # PUCT rows (children_index, prior, legal) of the nodes walked through
     children = int(((trees_after.children_index >= 0) & walked[:, :, None]).sum())
     walked = int(walked.sum())
-    byts += walked * (a * 9 + 8) + children * (12 if rewards else 8)
+    byts += walked * a * 9
     byts += b * (4 * 3 + 1 + n)           # selection out
     flops = walked * a * 12 + halved * a * a * 3 + b * a * 6
-    if rewards:  # q = reward + discount * mean, the rescale, the bounds
-        flops += (children + root_children) * 7 + path_nodes * 2 + b * n * 4
+    if rewards:  # q = reward + discount * mean at each child read
+        flops += (children + root_children) * 2 + path_nodes * 2
+    if spec.value_rescale:  # the bounds over the visited nodes, and each child's rescale
+        flops += int((trees_after.visits > 0).sum()) * 4 + (children + root_children) * 5
     return byts, flops
 
 

@@ -4,10 +4,12 @@
 // fused_tree_step) for think_batch == 1, in both of its regimes:
 //
 //   - the board regime (AlphaZero, board-game MuZero): no in-tree rewards,
-//     discount 1, no value rescale;
-//   - the MuZero reward regime (Atari): the leaf's predicted reward is
-//     stored at the node, the backup discounts, q = reward + discount * mean,
-//     and with value_rescale q is min-max normalised to the tree's bounds.
+//     discount 1;
+//   - the MuZero reward regime (Atari; reward_regime, set by the wrapper
+//     for leaf rewards or a discount other than 1): the leaf's predicted
+//     reward is stored at the node, the backup discounts and
+//     q = reward + discount * mean.
+//   In either regime value_rescale min-max normalises q to the tree's bounds.
 //
 // Its contract is minizero_tpu_torch/ops/tree_kernel.py::tree_step_reference:
 //
@@ -75,7 +77,7 @@ struct Args {
   int B, N, A, s, phase;
   // search spec
   int use_gumbel, flip, init_q_average, num_sims;
-  int use_rewards, value_rescale;
+  int use_rewards, reward_regime, value_rescale;  // reward_regime: see the top
   float puct_base, puct_init, log2_m0, sigma_visit_c, sigma_scale_c, discount;
   // tree, updated in place
   float *visits, *mean, *value, *reward;  // [B, N]
@@ -214,7 +216,7 @@ tree_step_kernel(const Args p) {
   }
 
   // ---- 2. back up ------------------------------------------------------------
-  const bool one_shot = !p.use_rewards && p.discount == 1.0f;
+  const bool one_shot = !p.reward_regime;
   if (en) {
     const int leaf = snew ? s : p.sleaf[b];
     float v = 0.0f;
@@ -250,7 +252,7 @@ tree_step_kernel(const Args p) {
 
   // per-node raw q and, with value_rescale, the tree's value bounds over the
   // visited nodes (mcts.cpp:40-53, 219-228); fixed for the rest of the step
-  const bool use_qnode = p.use_rewards || p.discount != 1.0f;
+  const bool use_qnode = p.reward_regime;
   auto qnode = [&](int n) -> float {
     return use_qnode ? reward[n] + p.discount * mean[n] : mean[n];
   };
@@ -426,7 +428,7 @@ tree_step_kernel(const Args p) {
 extern "C" int tree_step_launch(
     int B, int N, int A, int s, int phase,
     int use_gumbel, int flip, int init_q_average, int num_sims,
-    int use_rewards, int value_rescale,
+    int use_rewards, int reward_regime, int value_rescale,
     float puct_base, float puct_init, float log2_m0, float sigma_visit_c, float sigma_scale_c,
     float discount,
     void* visits, void* mean, void* value, void* reward, void* expanded, void* terminal,
@@ -441,7 +443,8 @@ extern "C" int tree_step_launch(
   p.B = B; p.N = N; p.A = A; p.s = s; p.phase = phase;
   p.use_gumbel = use_gumbel; p.flip = flip; p.init_q_average = init_q_average;
   p.num_sims = num_sims;
-  p.use_rewards = use_rewards; p.value_rescale = value_rescale;
+  p.use_rewards = use_rewards; p.reward_regime = reward_regime;
+  p.value_rescale = value_rescale;
   p.puct_base = puct_base; p.puct_init = puct_init; p.log2_m0 = log2_m0;
   p.sigma_visit_c = sigma_visit_c; p.sigma_scale_c = sigma_scale_c;
   p.discount = discount;

@@ -73,7 +73,7 @@ def tree_step_reference(
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = [_I] * 11 + [_F] * 6 + [_P] * 35  # see tree_step_launch
+_ARGTYPES = [_I] * 12 + [_F] * 6 + [_P] * 35  # see tree_step_launch
 
 
 def _library():
@@ -99,10 +99,13 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
 
 
 def uses_reward_regime(spec: SearchSpec, leaf_reward: Optional[torch.Tensor]) -> bool:
-    """Whether a step runs the MuZero reward regime (the JAX kernel's
-    ``use_rewards`` or a discount other than 1, or value rescale) rather
-    than the board regime."""
-    return leaf_reward is not None or spec.discount != 1.0 or spec.value_rescale
+    """Whether a step runs the MuZero reward regime rather than the board
+    regime: leaf rewards or a discount other than 1 (the JAX kernel's
+    ``use_rewards or discount != 1``), which back up serially through the
+    nodes' rewards and take ``q = reward + discount * mean``. The kernel is
+    handed this flag, so the launch counters and the backup it runs agree.
+    Value rescale is an option of either regime."""
+    return leaf_reward is not None or spec.discount != 1.0
 
 
 def fused_tree_step(
@@ -173,11 +176,13 @@ def fused_tree_step(
     )
     outputs = [nsel.parent, nsel.action, nsel.leaf, nsel.is_new, nsel.path]
     launch = _library()
+    reward_regime = uses_reward_regime(spec, leaf_reward)
     m0 = spec.gumbel_sample_size
     rc = launch(
         b, n, a, int(node_idx), int(phase),
         int(spec.use_gumbel), int(spec.flip_player2_value), int(spec.init_q_average),
-        int(spec.num_simulations), int(leaf_reward is not None), int(spec.value_rescale),
+        int(spec.num_simulations), int(leaf_reward is not None), int(reward_regime),
+        int(spec.value_rescale),
         spec.puct_base, spec.puct_init, math.log2(m0) if m0 > 0 else 0.0,
         spec.gumbel_sigma_visit_c, spec.gumbel_sigma_scale_c, spec.discount,
         *[x.data_ptr() for _, x, _, _ in inputs],
@@ -187,7 +192,7 @@ def fused_tree_step(
     )
     if rc != 0:
         raise RuntimeError(f"fused_tree_step: CUDA kernel launch failed (cudaError {rc})")
-    if uses_reward_regime(spec, leaf_reward):
+    if reward_regime:
         fused_tree_step.launches_rewards += 1
     else:
         fused_tree_step.launches += 1

@@ -49,8 +49,9 @@ from minizero_tpu_torch.ops.tree_kernel_v2 import (
     unpack_trees)
 from minizero_tpu_torch.search import gumbel as gz
 from minizero_tpu_torch.search import mcts
+from minizero_tpu_torch.search.decide import decide
 from minizero_tpu_torch.search.mcts import SearchSpec, Tree
-from minizero_tpu_torch.selfplay.muzero_search import decide, make_muzero_search
+from minizero_tpu_torch.selfplay.muzero_search import make_muzero_search
 from minizero_tpu_torch.utils.bitpack import pack_planes
 from minizero_tpu_torch.utils.transforms import from_discrete_value
 

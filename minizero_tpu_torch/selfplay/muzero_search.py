@@ -24,43 +24,16 @@ the timed search.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Optional
 
 import torch
 
 from minizero_tpu_torch.ops.tree_kernel import fused_tree_step, supports_fused_tree_step
 from minizero_tpu_torch.search import gumbel as gz
 from minizero_tpu_torch.search import mcts
+from minizero_tpu_torch.search.decide import SearchResult, decide
 from minizero_tpu_torch.search.mcts import SearchSpec, Tree
 from minizero_tpu_torch.utils.transforms import from_discrete_value
-
-
-class SearchResult(NamedTuple):
-    action: torch.Tensor  # i32[B]
-    policy_target: torch.Tensor  # f32[B, A]
-    root_value: torch.Tensor  # f32[B]
-    resign: torch.Tensor  # bool[B]
-
-
-def decide(spec: SearchSpec, trees: Tree, temperature: float, resign_threshold: float,
-           generator: Optional[torch.Generator] = None) -> SearchResult:
-    """Action, policy target, root value and resign signal from finished
-    trees (reference ZeroActor::decideActionNode, zero_actor.cpp:178-192)."""
-    if spec.use_gumbel:
-        if spec.select_by_count:
-            action = gz.decide_action(spec, trees)
-        else:
-            action = mcts.select_action_by_softmax_count(spec, trees, temperature, generator)
-        policy_target = gz.improved_policy_target(spec, trees)
-    else:
-        if spec.select_by_count:
-            action = mcts.select_action_by_max_count(trees)
-        else:
-            action = mcts.select_action_by_softmax_count(spec, trees, temperature, generator)
-        policy_target = mcts.mcts_policy_target(trees)
-    resign = mcts.is_resign(spec, trees, action, resign_threshold)
-    return SearchResult(action=action, policy_target=policy_target,
-                        root_value=trees.mean[:, 0], resign=resign)
 
 
 def _scalar(out, key: str, discrete: bool) -> torch.Tensor:

@@ -425,7 +425,8 @@ def test_port_and_chip_smoke_import_without_jax():
         "for name in names:",
         "    importlib.import_module(name)",
         "assert {'minizero_tpu_torch.models.muzero', 'minizero_tpu_torch.selfplay.muzero_search',",
-        "        'minizero_tpu_torch.envs.atari', 'minizero_tpu_torch.weights'} <= set(names), names",
+        "        'minizero_tpu_torch.envs.atari', 'minizero_tpu_torch.weights',",
+        "        'minizero_tpu_torch.search.decide'} <= set(names), names",
         "import chip_smoke",
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'minizero_tpu') and sys.modules[k] is not None",
         "               for k in list(sys.modules))",
