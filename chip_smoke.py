@@ -66,6 +66,12 @@ AZ_SCAN_MOVES = 4
 ATARI_BATCH = 256
 ATARI_SIMS = 50
 ATARI_SEARCHES = 3
+# B2 timed at one simulation of each capacity stage (65, 129, 201)
+V2_TIMED_SIMS = (60, 120, AZ_SIMS - 10)
+# the trained az n=200 net (scripts/export_trained_weights.py), and the
+# moves it plays before its timed move
+TRAINED_NPZ = os.path.join("minizero_tpu_torch", "assets", "go9_az200_r3b_iter25000.npz")
+TRAINED_WARM_MOVES = 8
 FLOAT_ATOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
@@ -273,9 +279,27 @@ def time_plain(kept, reps: int = 5):
                                                      leaf_reward=reward), reps, hold=False)
 
 
+def warm_selection_ms(kept, reps: int = 20) -> float:
+    """Mean ms per launch of the selection-only step (phase 0) of the kept
+    state, repeated on one copy of it: it writes no tree field, and after
+    the first launch every row the walks read is in L2, so this is the
+    kernel's own chain with memory warm (card clock)."""
+    from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
+    from minizero_tpu_torch.ops.tree_kernel_v2 import fused_tree_step_v2
+
+    if len(kept) == 7:  # B1
+        spec, trees, sel, leaf, idx, _, reward = kept
+        one = trees.clone()
+        return time_events(lambda i: fused_tree_step(spec, one, sel, *leaf, idx, 0,
+                                                     leaf_reward=reward), reps)
+    spec, packed, sel, leaf, idx, _ = kept
+    one = packed.clone()
+    return time_events(lambda i: fused_tree_step_v2(spec, one, sel, *leaf, idx, 0), reps)
+
+
 def tree_step_numbers(kept):
-    """(kernel ms, plain ms, bound ms, bound_by, bytes, flops) of the CUDA
-    tree step at the kept state."""
+    """(kernel ms, plain ms, bound ms, bound_by, bytes, flops, deepest next
+    path in nodes) of the CUDA tree step at the kept state."""
     from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
 
     k_ms = time_kernel(kept)
@@ -286,7 +310,7 @@ def tree_step_numbers(kept):
     byts, flops = tree_step_work(kept, nsel, after)
     t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     return (k_ms, p_ms, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            byts, flops)
+            byts, flops, int(nsel.path.sum(1).max()))
 
 
 # ---------------------------------------------------------------------------
@@ -301,24 +325,31 @@ def _compare_fields(check, got, want, where):
 
 class TreeStepV2Check(TreeStepCheck):
     """Wraps the engine's v2 tree step: each call runs the CUDA kernel and
-    the plain version from the same state and compares every output. Keeps
-    a copy of the inputs of simulation ``keep_sim`` for timing."""
+    the plain version from the same state and compares every output (only
+    at the simulations in ``check_sims`` when that is given). Keeps a copy
+    of the inputs of each simulation in ``keep_sims`` for timing
+    (``kept[sim]``)."""
 
-    def __init__(self, keep_sim: int):
-        super().__init__(keep_sim)
+    def __init__(self, keep_sims, check_sims=None):
+        super().__init__(-1)
         from minizero_tpu_torch.ops.tree_kernel_v2 import fused_tree_step_v2, tree_step_v2_reference
 
         self.kernel = fused_tree_step_v2
         self.plain = tree_step_v2_reference
+        self.keep_sims = set(keep_sims)
+        self.check_sims = check_sims
+        self.kept = {}
         self.caps = set()
 
     def __call__(self, spec, packed, sel, *rest):
         node_idx, phase = rest[-2], rest[-1]
         leaf = rest[:-2]
+        if node_idx in self.keep_sims and node_idx not in self.kept:
+            self.kept[node_idx] = (spec, packed.clone(), sel.clone(),
+                                   tuple(x.clone() for x in leaf), node_idx, phase)
+        if self.check_sims is not None and node_idx not in self.check_sims:
+            return self.kernel(spec, packed, sel, *leaf, node_idx, phase)
         ref_sel = sel.clone()
-        if node_idx == self.keep_sim and self.kept is None:
-            self.kept = (spec, packed.clone(), sel.clone(), tuple(x.clone() for x in leaf),
-                         node_idx, phase)
         want_p, want_s = self.plain(spec, packed, ref_sel, *leaf, node_idx, phase)
         got_p, got_s = self.kernel(spec, packed, sel, *leaf, node_idx, phase)
         where = f"v2 sim {node_idx} (phase {phase}, cap {packed.visits.shape[1]})"
@@ -405,6 +436,22 @@ def time_tree_step_v2(kept, reps: int = 20):
     p_ms = time_events(lambda i: tree_step_v2_reference(spec, packed, sel, *leaf, node_idx, phase),
                        3, hold=False)
     return k_ms, p_ms
+
+
+def tree_step_v2_numbers(kept):
+    """(kernel ms, plain ms, bound ms, bound_by, bytes, flops, deepest next
+    path in nodes) of the CUDA v2 tree step at the kept state."""
+    from minizero_tpu_torch.ops.tree_kernel_v2 import fused_tree_step_v2
+
+    k_ms, p_ms = time_tree_step_v2(kept)
+    spec, packed, sel, leaf, idx, phase = kept
+    after = packed.clone()
+    _, nsel = fused_tree_step_v2(spec, after, sel, *leaf, idx, phase)
+    depth = int(nsel.path.sum(1).max())
+    byts, flops = tree_step_v2_work(kept, nsel, after)
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (k_ms, p_ms, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            byts, flops, depth)
 
 
 # ---------------------------------------------------------------------------
@@ -513,7 +560,7 @@ def profile_run(fn, ms_per_run: float, kernel_names=(), what: str = "move"):
     (the summed durations of the kernels and copies that ran on the card)
     against the unprofiled time of one call, kernel launches per call, and
     the kernels that take the most device time. Returns the summary line and
-    the device ms of each kernel whose name contains one of
+    a dict of the device ms of each kernel whose name contains one of
     ``kernel_names``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -538,7 +585,7 @@ def profile_run(fn, ms_per_run: float, kernel_names=(), what: str = "move"):
                     for n, d in named.items())
     return (f"device busy {busy_ms:.2f} ms of {ms_per_run:.1f} ms/{what} "
             f"(idle share {1 - busy_ms / ms_per_run:.3f}), {launches} kernel launches/{what}; "
-            f"top device time: {parts}" + (f"; kernels of the port: {own}" if own else ""))
+            f"top device time: {parts}" + (f"; kernels of the port: {own}" if own else "")), named
 
 
 def check_scan(engine, start_states, scan, end_states, moves: int, what: str) -> None:
@@ -680,6 +727,7 @@ def main() -> None:
     from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
     from minizero_tpu_torch.ops.tree_kernel_v2 import fused_tree_step_v2
     from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
+    from minizero_tpu_torch.weights import from_jax_variables, load_variables_npz
 
     # float32 comparisons run in full float32 on the card
     torch.backends.cudnn.allow_tf32 = False
@@ -710,11 +758,18 @@ def main() -> None:
         usage = "; ".join(re.sub(r"\s+", " ", line.split(":", 1)[1]).strip()
                           for line in res.log.splitlines() if "Used" in line)
         log(f"phase 2 build: {res.name}.cu in {res.seconds:.2f} s (ptxas: {usage or 'n/a'})")
-    # tree_step.cu: 128 threads per block, 3 scratch rows of A floats per warp
-    # in dynamic shared memory (none static); tree_step_v2.cu and
-    # gather_rows.cu use no shared memory
-    log(f"phase 2 tree_step shared memory: {4 * 3 * 82 * 4} bytes per 128-thread block at A=82 "
-        f"({3 * 82 * 4 // 32} bytes per thread); tree_step_v2 and gather_rows: none")
+    # registers and shared memory per 128-thread block (cudaFuncGetAttributes;
+    # the dynamic size is what a launch at these shapes asks for)
+    def attrs(d):
+        return (f"{d['registers']} registers, {d['static_smem']} bytes static + "
+                f"{d['dynamic_smem']} bytes dynamic shared memory per block")
+
+    for what, name, shape in (("tree_step (gaz/gmz: A=82, N=17)", "tree_step", (82, 17)),
+                              ("tree_step (Atari: A=18, N=51)", "tree_step", (18, 51)),
+                              *((f"tree_step_v2 (A=82, cap {c})", "tree_step_v2", (82, c))
+                                for c in (65, 129, AZ_SIMS + 1)),
+                              ("gather_rows", "gather_rows", ())):
+        log(f"phase 2 {what}: {attrs(_build.kernel_attributes(name, *shape))}")
     log(f"phase 2 build done in {time.perf_counter() - t:.2f} s (nvcc processes in parallel)")
 
     # ---- 3. kernel vs plain version at full width ----------------------------
@@ -759,7 +814,7 @@ def main() -> None:
     log(f"config: go 9x9 az n={az_spec.num_simulations} net {az_cfg.nn_num_blocks}x"
         f"{az_cfg.nn_num_hidden_channels} bf16, B={BATCH}, N={az_spec.max_nodes}, "
         f"A={az_spec.action_size}, state row {az_env.spec.name}")
-    v2check = TreeStepV2Check(keep_sim=AZ_SIMS - 10)
+    v2check = TreeStepV2Check(keep_sims=V2_TIMED_SIMS)
     gcheck = GatherCheck(keep_call=AZ_SIMS - 10)
     az.tree_step_v2, az.gather_rows = v2check, gcheck
     t = time.perf_counter()
@@ -849,9 +904,12 @@ def main() -> None:
 
     # kernel time beside its plain version and its bound, at the main path's
     # shapes (the kept full-width state of phase 3)
-    k_ms, p_ms, bound_ms, bound_by, byts, flops = tree_step_numbers(check.kept)
-    log(f"tree_step at sim {check.kept[4]}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
-        f"{bound_ms:.5f} ms ({byts} bytes, {flops} flops)")
+    k_ms, p_ms, bound_ms, bound_by, byts, flops, depth = tree_step_numbers(check.kept)
+    floor_ms = time_events(lambda i: torch.zeros(1024, device="cuda"), 50)
+    log(f"tree_step at sim {check.kept[4]} (deepest next path {depth} nodes): kernel {k_ms:.4f} ms, "
+        f"selection only on a warm state {warm_selection_ms(check.kept):.4f} ms, plain "
+        f"{p_ms:.3f} ms, bound {bound_ms:.5f} ms ({byts} bytes, {flops} flops); a launch's floor "
+        f"(torch.zeros of 1024 floats, back to back) {floor_ms:.4f} ms")
 
     # 4b. the large-N path
     az_warm = az.move(az_out.states)  # warm-up move
@@ -876,20 +934,15 @@ def main() -> None:
         f"{AZ_SCAN_MOVES} x {AZ_SIMS} gathers); all actions legal; "
         f"{int((az_scan.resigned | az_scan.ended).sum())} games finished")
 
-    # B2 at a late simulation (cap 201, deep walks), beside its plain version
-    # and its bound
-    v2kept = v2check.kept
-    k2_ms, p2_ms = time_tree_step_v2(v2kept)
-    spec2, packed2, sel2, leaf2, idx2, ph2 = v2kept
-    after2 = packed2.clone()
-    _, nsel2 = fused_tree_step_v2(spec2, after2, sel2, *leaf2, idx2, ph2)
-    depth = int(nsel2.path.sum(1).max())
-    byts2, flops2 = tree_step_v2_work(v2kept, nsel2, after2)
-    t2_bytes, t2_ops = byts2 / HBM_BYTES_PER_S * 1e3, flops2 / F32_FLOPS * 1e3
-    bound2_ms = max(t2_bytes, t2_ops)
-    log(f"tree_step_v2 at sim {idx2} (cap {packed2.visits.shape[1]}, deepest next path "
-        f"{depth} nodes): kernel {k2_ms:.4f} ms, plain {p2_ms:.3f} ms, bound {bound2_ms:.5f} ms "
-        f"({byts2} bytes, {flops2} flops)")
+    # B2 at one simulation of each capacity stage (the last: cap 201, deep
+    # walks), beside its plain version and its bound
+    for sim in V2_TIMED_SIMS:
+        kept2 = v2check.kept[sim]
+        k2_ms, p2_ms, bound2_ms, bound2_by, byts2, flops2, depth = tree_step_v2_numbers(kept2)
+        log(f"tree_step_v2 at sim {sim} (cap {kept2[1].visits.shape[1]}, deepest next path "
+            f"{depth} nodes): kernel {k2_ms:.4f} ms, selection only on a warm state "
+            f"{warm_selection_ms(kept2):.4f} ms, plain {p2_ms:.3f} ms, bound {bound2_ms:.5f} ms "
+            f"({byts2} bytes, {flops2} flops)")
 
     # B3 on the engine's blob at the kept gather's indices, beside its plain
     # version, the library call and its bound
@@ -903,6 +956,30 @@ def main() -> None:
     log(f"gather_rows [{BATCH}, {blob.shape[1]}, {blob_w}] int32: kernel {k3_ms:.4f} ms, plain "
         f"{p3_ms:.4f} ms, library x[arange(B), idx] {l3_ms:.4f} ms, bound {bound3_ms:.5f} ms "
         f"({byts3} bytes)")
+
+    # 4b'. B2 on a trained net's walks: the az n=200 net of runs/go9_az200_r3b
+    # (iteration 25000) plays a few moves, then one move whose simulation
+    # 190 is held against the plain version and timed
+    tr_net = create_network(az_cfg, az_env.spec)
+    tr_net.load_state_dict(from_jax_variables(load_variables_npz(os.path.join(ROOT, TRAINED_NPZ)),
+                                              hidden_hw=81))
+    tr = SelfPlayEngine(az_env, az_cfg, tr_net, use_bf16=True, device="cuda", seed=7)
+    t = time.perf_counter()
+    _, tr_states, _, _ = tr.move_scan(tr.init_batch(BATCH), num_moves=TRAINED_WARM_MOVES)
+    tr_check = TreeStepV2Check(keep_sims=(AZ_SIMS - 10,), check_sims={AZ_SIMS - 10})
+    tr.tree_step_v2 = tr_check
+    tr.move(tr_states)
+    torch.cuda.synchronize()
+    tr.tree_step_v2 = fused_tree_step_v2
+    if tr_check.calls != 1 or AZ_SIMS - 10 not in tr_check.kept:
+        fail(f"trained az move: {tr_check.calls} checked v2 tree steps, expected 1")
+    kt_ms, pt_ms, boundt_ms, _, bytst, flopst, deptht = tree_step_v2_numbers(
+        tr_check.kept[AZ_SIMS - 10])
+    log(f"phase 4b' trained az n={AZ_SIMS} ({TRAINED_NPZ}), move {TRAINED_WARM_MOVES + 1}: "
+        f"tree_step_v2 at sim {AZ_SIMS - 10} equal to its plain version (max |diff| "
+        f"{tr_check.max_abs_err:.3g}); deepest next path {deptht} nodes: kernel {kt_ms:.4f} ms, "
+        f"plain {pt_ms:.3f} ms, bound {boundt_ms:.5f} ms ({bytst} bytes, {flopst} flops); in "
+        f"{time.perf_counter() - t:.2f} s")
 
     # 4c. Go 9x9 Gumbel MuZero: a warm-up move with every tree step beside
     # its plain version, then move_scan
@@ -969,23 +1046,27 @@ def main() -> None:
 
     # B1' at the middle of the Atari search, beside its plain version and its
     # bound
-    k4_ms, p4_ms, bound4_ms, bound4_by, byts4, flops4 = tree_step_numbers(at_check.kept)
-    log(f"tree_step (reward regime) at sim {at_check.kept[4]} of the Atari search: kernel "
-        f"{k4_ms:.4f} ms, plain {p4_ms:.3f} ms, bound {bound4_ms:.5f} ms ({byts4} bytes, "
-        f"{flops4} flops)")
+    k4_ms, p4_ms, bound4_ms, bound4_by, byts4, flops4, depth4 = tree_step_numbers(at_check.kept)
+    log(f"tree_step (reward regime) at sim {at_check.kept[4]} of the Atari search (deepest "
+        f"next path {depth4} nodes): kernel "
+        f"{k4_ms:.4f} ms, selection only on a warm state {warm_selection_ms(at_check.kept):.4f} "
+        f"ms, plain {p4_ms:.3f} ms, bound {bound4_ms:.5f} ms ({byts4} bytes, {flops4} flops)")
 
     # ---- 5. where the device time goes ----------------------------------------
-    line = profile_run(lambda: engine.move(end_states), 1e3 * elapsed / SCAN_MOVES,
-                       ("tree_step_kernel",))
+    line, _ = profile_run(lambda: engine.move(end_states), 1e3 * elapsed / SCAN_MOVES,
+                          ("tree_step_kernel",))
     log(f"phase 5 one profiled gaz move: {line}")
-    line = profile_run(lambda: az.move(az_end), az_ms_per_move,
-                       ("tree_step_v2_kernel", "gather_rows_kernel"))
+    line, named = profile_run(lambda: az.move(az_end), az_ms_per_move,
+                              ("tree_step_v2_kernel", "gather_rows_kernel"))
     log(f"phase 5 one profiled az n={AZ_SIMS} move: {line}")
-    line = profile_run(lambda: mz.move(mz_end), mz_ms_per_move, ("tree_step_kernel",))
+    log(f"phase 5 tree_step_v2 per az move: {named['tree_step_v2_kernel']:.3f} ms over "
+        f"{AZ_SIMS + 1} launches, {named['tree_step_v2_kernel'] / (AZ_SIMS + 1):.4f} ms per launch "
+        f"on average")
+    line, _ = profile_run(lambda: mz.move(mz_end), mz_ms_per_move, ("tree_step_kernel",))
     log(f"phase 5 one profiled gmz move: {line}")
     with torch.no_grad():
-        line = profile_run(lambda: at_search(at_feats, at_legal, at_turns, at_gen),
-                           at_ms_per_search, ("tree_step_kernel",), what="search")
+        line, _ = profile_run(lambda: at_search(at_feats, at_legal, at_turns, at_gen),
+                              at_ms_per_search, ("tree_step_kernel",), what="search")
     log(f"phase 5 one profiled Atari search: {line}")
 
     result = {"kernels": [{
@@ -1010,7 +1091,7 @@ def main() -> None:
         "ms": k2_ms,
         "plain_ms": p2_ms,
         "bound_ms": bound2_ms,
-        "bound_by": "bytes" if t2_bytes >= t2_ops else "operations",
+        "bound_by": bound2_by,
         "library_ms": None,
     }, {
         "name": "gather_rows",

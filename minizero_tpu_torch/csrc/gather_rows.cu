@@ -52,3 +52,15 @@ extern "C" int gather_rows_launch(int B, int N, int W, const void* x, const void
       (const int32_t*)x, (const int32_t*)idx, (int32_t*)out, N, W, vec4);
   return (int)cudaGetLastError();
 }
+
+// Registers per thread, static and dynamic shared memory per block of the
+// kernel (a launch asks for no dynamic shared memory).
+extern "C" int gather_rows_attributes(int* regs, int* static_smem, int* dynamic_smem) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, gather_rows_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *static_smem = (int)attr.sharedSizeBytes;
+  *dynamic_smem = 0;
+  return 0;
+}

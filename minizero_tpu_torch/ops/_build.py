@@ -99,3 +99,16 @@ def load(name: str) -> ctypes.CDLL:
         (res,) = build([name])
         _LOADED[name] = ctypes.CDLL(res.path)
     return _LOADED[name]
+
+
+def kernel_attributes(name: str, *shape: int) -> Dict[str, int]:
+    """Registers per thread and static and dynamic shared memory per block of
+    the kernel of ``<name>.cu`` that a launch at ``shape`` runs, from the
+    source's ``<name>_attributes`` function (``cudaFuncGetAttributes``;
+    needs the card)."""
+    fn = getattr(load(name), f"{name}_attributes")
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = fn(*[ctypes.c_int(x) for x in shape], *[ctypes.byref(v) for v in vals])
+    if rc != 0:
+        raise RuntimeError(f"{name}_attributes failed (cudaError {rc})")
+    return dict(zip(("registers", "static_smem", "dynamic_smem"), (v.value for v in vals)))

@@ -31,6 +31,7 @@ from minizero_tpu_torch.search.mcts import SearchSpec, Selection, Tree
 # the next selection plus its root-to-leaf path mask (the JAX package's
 # NextSelection): parent/action/leaf i32[B], is_new bool[B], path bool[B, N]
 NextSelection = Selection
+MAX_ACTIONS = 384  # the CUDA kernel keeps a row in registers, 12 actions a lane
 
 
 def supports_fused_tree_step(spec: SearchSpec) -> bool:
@@ -137,6 +138,8 @@ def fused_tree_step(
 
     b, n = trees.visits.shape
     a = spec.action_size
+    if a > MAX_ACTIONS:
+        raise ValueError(f"fused_tree_step: {a} actions, the kernel takes at most {MAX_ACTIONS}")
     if n != spec.max_nodes:
         raise ValueError(f"fused_tree_step: trees hold {n} nodes, spec says {spec.max_nodes}")
     if not 0 <= int(node_idx) < n:

@@ -44,6 +44,7 @@ import torch
 from minizero_tpu_torch.search.mcts import SearchSpec, Tree
 
 SPARE = 8  # spare lanes for the packed node scalars
+MAX_ACTIONS = 384  # the CUDA kernel keeps a row in registers, 12 actions a lane
 
 
 @dataclass
@@ -346,6 +347,8 @@ def fused_tree_step_v2(
 
     b, cap, l = packed.prior.shape
     a = spec.action_size
+    if a > MAX_ACTIONS:
+        raise ValueError(f"fused_tree_step_v2: {a} actions, the kernel takes at most {MAX_ACTIONS}")
     if l != lane_width(spec):
         raise ValueError(f"fused_tree_step_v2: {l} lanes, spec says {lane_width(spec)}")
     if not 0 <= int(node_idx) < cap:

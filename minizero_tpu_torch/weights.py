@@ -92,6 +92,21 @@ class _StateDict:
         return sd
 
 
+def load_variables_npz(path: str) -> Dict[str, Dict]:
+    """An ``.npz`` of flax variables with "/"-joined keys (as
+    ``scripts/export_trained_weights.py`` writes them) -> the nested dict
+    that ``from_jax_variables`` takes."""
+    out: Dict[str, Dict] = {}
+    with np.load(path) as z:
+        for key in z.files:
+            *path_, leaf = key.split("/")
+            node = out
+            for part in path_:
+                node = node.setdefault(part, {})
+            node[leaf] = z[key]
+    return out
+
+
 def from_jax_variables(variables: Mapping, hidden_hw: int) -> Dict[str, torch.Tensor]:
     """flax AlphaZeroNetwork variables -> ``AlphaZeroNetwork.state_dict()``
     (``hidden_hw`` = hidden height * width, 81 for Go 9x9)."""

@@ -10,6 +10,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -205,13 +206,17 @@ def test_gather_rows_kernel_matches_plain_on_card(b, n, w):
     assert torch.equal(got[~skip], x[torch.arange(b, device="cuda"), idx.long().clamp(0, n - 1)][~skip])
 
 
-def _reward_regime_steps(spec, b, seed, make_leaf, reward_scale=1.0, dev="cuda", edit=None):
+def _reward_regime_steps(spec, b, seed, make_leaf, reward_scale=1.0, dev="cuda", edit=None,
+                         rewards=True):
     """Root expansion, then every simulation of a search on random leaf
     inputs (MuZero interiors: all legal, never terminal), each step run by
     the CUDA kernel and the plain version from the same state and compared.
-    ``edit(trees)`` may rewrite the trees before the phase-0 step. Returns
-    the final trees, the final selection and the longest selection path."""
-    from minizero_tpu_torch.ops.tree_kernel import fused_tree_step, tree_step_reference
+    ``edit(trees)`` may rewrite the trees before the phase-0 step. With
+    ``rewards`` False the leaves carry no reward (the board regime when the
+    discount is 1). Returns the final trees, the final selection and the
+    longest selection path."""
+    from minizero_tpu_torch.ops.tree_kernel import (
+        fused_tree_step, tree_step_reference, uses_reward_regime)
     from minizero_tpu_torch.search import gumbel as gz
     from minizero_tpu_torch.search import mcts
 
@@ -238,7 +243,7 @@ def _reward_regime_steps(spec, b, seed, make_leaf, reward_scale=1.0, dev="cuda",
         policy, logit = make_leaf(g)
         value = (torch.rand((b,), generator=g, device=dev) * 2.0 - 1.0) * reward_scale
         reward = None
-        if sim > 0:
+        if sim > 0 and rewards:
             reward = (torch.rand((b,), generator=g, device=dev) * 2.0 - 1.0) * reward_scale
         phase = 0 if sim == 0 else 1
         args = (policy, logit, ones, no_term, value, turns, sim, phase)
@@ -246,9 +251,10 @@ def _reward_regime_steps(spec, b, seed, make_leaf, reward_scale=1.0, dev="cuda",
                                               for f in dataclasses.fields(sel)})
         want_t, want_s = tree_step_reference(spec, trees.clone(), ref_sel, *args,
                                              leaf_reward=reward)
-        before = fused_tree_step.launches_rewards
+        counter = "launches_rewards" if uses_reward_regime(spec, reward) else "launches"
+        before = getattr(fused_tree_step, counter)
         trees, sel = fused_tree_step(spec, trees, sel, *args, leaf_reward=reward)
-        assert fused_tree_step.launches_rewards == before + 1
+        assert getattr(fused_tree_step, counter) == before + 1
         _assert_equal_outputs(trees, want_t, f"sim {sim}")
         _assert_equal_outputs(sel, want_s, f"sim {sim}")
         depth = max(depth, int(sel.path.sum(1).max()))
@@ -410,6 +416,288 @@ def test_muzero_searches_match_plain_on_card():
     assert steps == list(range(51))
     assert (fused_tree_step.launches, fused_tree_step.launches_rewards) == (before[0] + 17, before[1] + 51)
     assert bool(torch.isfinite(res.root_value).all())
+
+
+# ---------------------------------------------------------------------------
+# cases that the register-row / shared-memory designs of the two tree-step
+# kernels could get wrong: prefetched paths left halfway, walks as deep as
+# the capacity, exact score ties, signed zeros, ragged blocks, revisits
+# ---------------------------------------------------------------------------
+
+def _v2_step_checked(spec, packed, sel, leaf, sim, phase):
+    """One v2 step by the kernel and the plain version from the same state;
+    every field compared. Returns the kernel's outputs."""
+    from minizero_tpu_torch.ops import tree_kernel_v2 as tv2
+
+    want_p, want_s = tv2.tree_step_v2_reference(spec, packed, sel.clone(), *leaf, sim, phase)
+    before = tv2.fused_tree_step_v2.launches
+    got_p, got_s = tv2.fused_tree_step_v2(spec, packed, sel.clone(), *leaf, sim, phase)
+    assert tv2.fused_tree_step_v2.launches == before + 1
+    _assert_equal_outputs(got_p, want_p, f"sim {sim} (phase {phase})")
+    _assert_equal_outputs(got_s, want_s, f"sim {sim} (phase {phase})")
+    return got_p, got_s
+
+
+def _v2_root(spec, b, cap, policy, legal):
+    """Packed trees of capacity ``cap`` holding an expanded, backed-up root."""
+    from minizero_tpu_torch.ops import tree_kernel_v2 as tv2
+    from minizero_tpu_torch.search import mcts
+
+    turns = torch.ones((b,), dtype=torch.int32, device="cuda")
+    zeros_i = torch.zeros((b,), dtype=torch.int32, device="cuda")
+    trees = mcts.init_tree(spec, turns)
+    trees = mcts.expand_node(spec, trees, 0, zeros_i - 1, zeros_i, turns, policy, policy.log(),
+                             legal, torch.zeros((b,), dtype=torch.bool, device="cuda"))
+    trees = mcts.backup(spec, trees, zeros_i, torch.zeros((b,), device="cuda"),
+                        torch.zeros((b,), device="cuda"))
+    return tv2.pack_trees(spec, trees, cap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [65, 129, 201])
+def test_tree_step_v2_chain_as_deep_as_the_capacity(cap):
+    """Every prior on action 0 and every leaf value 0 (so q is +0.0 or, under
+    the player flip, -0.0): each walk re-follows the previous path and goes
+    one level deeper, and the last walks the whole chain of cap - 1 levels at
+    the Go 9x9 shapes (A = 82) and B = 37. Then, from the state before the
+    last step, the node halfway down loses its child's prior and gains an
+    open lane of prior 1: the next walk follows the prefetched path halfway
+    and leaves it there. Kernel and plain version on every step."""
+    _need_card()
+    from minizero_tpu_torch.ops import tree_kernel_v2 as tv2
+    from minizero_tpu_torch.search import mcts
+
+    b, a = 37, 82
+    spec = mcts.SearchSpec(action_size=a, num_simulations=cap - 1, use_gumbel=False,
+                           flip_player2_value=True, init_q_average=False)
+    logit = torch.full((b, a), -30.0, device="cuda")
+    logit[:, 0] = 0.0
+    policy = torch.softmax(logit, -1)
+    legal = torch.ones((b, a), dtype=torch.bool, device="cuda")
+    no_term = torch.zeros((b,), dtype=torch.bool, device="cuda")
+    zero_v = torch.zeros((b,), device="cuda")
+
+    def leaf(sim):
+        turn = torch.full((b,), 1 + sim % 2, dtype=torch.int32, device="cuda")
+        return policy, legal, no_term, zero_v, turn
+
+    packed = _v2_root(spec, b, cap, policy, legal)
+    sel = tv2.empty_selection_v2(spec, b, cap, "cuda")
+    for sim in range(cap - 1):
+        packed, sel = _v2_step_checked(spec, packed, sel, leaf(sim), sim, 0 if sim == 0 else 1)
+    before_last = (packed.clone(), sel.clone())
+    _, last = _v2_step_checked(spec, packed, sel, leaf(cap - 1), cap - 1, 1)
+    assert bool((last.path.sum(1) == cap).all()) and bool((last.parent == cap - 1).all())
+
+    packed, sel = before_last
+    half = (cap - 1) // 2
+    packed.pedge[:, half + 1] = 0.0
+    packed.prior[:, half, 1] = 1.0
+    _, left = _v2_step_checked(spec, packed, sel, leaf(cap - 1), cap - 1, 1)
+    assert bool((left.path.sum(1) == half + 1).all())
+    assert bool((left.parent == half).all()) and bool((left.action == 1).all())
+    assert bool(left.is_new.all())
+
+
+def _crafted_v2_trees(b, a, cap, seed):
+    """Packed trees whose scores tie often: a root of 1 or 3 visits (so
+    sqrt(n) is 0 or not) whose lanes are illegal, open, expanded children or
+    terminal children (node 1 + a), with means, edge priors and row priors
+    drawn from a few values that include -0.0 and +0.0; each child's own
+    row is all open lanes. Node cap - 1 stays free for an expansion."""
+    from minizero_tpu_torch.ops import tree_kernel_v2 as tv2
+
+    rng = np.random.default_rng(seed)
+    lanes = a + tv2.SPARE
+    priors = np.array([-0.0, 0.0, 0.25, 0.5], np.float32)
+    means = np.array([-0.0, 0.0, 0.5, -0.5], np.float32)
+    kind = rng.integers(0, 4, size=(b, a))  # 0 illegal, 1 open, 2 child, 3 terminal child
+    kind[:, 0] = np.where(kind[:, 0] == 0, 1, kind[:, 0])
+    prior = np.zeros((b, cap, lanes), np.float32)
+    cix = np.full((b, cap, lanes), -2, np.int32)
+    visits = np.zeros((b, cap), np.float32)
+    mean = np.zeros((b, cap), np.float32)
+    value = np.zeros((b, cap), np.float32)
+    pedge = np.zeros((b, cap), np.float32)
+    pvec = np.full((b, cap), -1, np.int32)
+    avec = np.full((b, cap), -1, np.int32)
+    pterm = np.zeros((b, cap), np.int32)
+    node = 1 + np.arange(a)
+    prior[:, 0, :a] = priors[rng.integers(0, 4, size=(b, a))]
+    cix[:, 0, :a] = np.select([kind == 1, kind == 2, kind == 3], [-1, node, -3 - node], -2)
+    cix[:, 0, a:a + 5] = np.array([-1, -1, 1, 1, 0])
+    cix[:, 0, a + 2] = rng.integers(1, 3, size=b)
+    visits[:, 0] = np.where(rng.random(b) < 0.5, 1.0, 3.0)
+    has = kind >= 2
+    visits[:, 1:a + 1] = np.where(has, rng.integers(1, 3, size=(b, a)), 0)
+    mean[:, 1:a + 1] = np.where(has, means[rng.integers(0, 4, size=(b, a))], 0.0)
+    value[:, 1:a + 1] = np.where(has, rng.uniform(-1, 1, size=(b, a)), 0.0)
+    pedge[:, 1:a + 1] = np.where(has, priors[rng.integers(0, 4, size=(b, a))], 0.0)
+    pvec[:, 1:a + 1] = np.where(has, 0, -1)
+    avec[:, 1:a + 1] = np.where(has, np.arange(a), -1)
+    pterm[:, 1:a + 1] = kind == 3
+    child_rows = has & (kind == 2)
+    for j in range(a):
+        rows = child_rows[:, j]
+        prior[rows, 1 + j, :a] = priors[rng.integers(0, 4, size=(int(rows.sum()), a))]
+        cix[rows, 1 + j, :a] = -1
+        cix[rows, 1 + j, a:a + 5] = np.array([0, j, 1, 1, 0])
+        cix[rows, 1 + j, a + 2] = rng.integers(1, 3, size=int(rows.sum()))
+    t = lambda x: torch.from_numpy(x).cuda()  # noqa: E731
+    return tv2.PackedTrees(prior=t(prior), cix=t(cix), visits=t(visits), mean=t(mean),
+                           value=t(value), pedge=t(pedge), pvec=t(pvec), avec=t(avec),
+                           pterm=t(pterm))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("init_q_average", [False, True])
+def test_tree_step_v2_exact_ties_and_signed_zeros(init_q_average):
+    """Crafted trees at B = 1023 (not a multiple of the four games of a
+    block), A = 8: scores that tie exactly with equal and with different
+    priors, children against open lanes, and -0.0 against +0.0 in scores
+    and priors. A selection step (phase 0), then a full step from its
+    selection: new edges expand and terminal children are revisited (their
+    stored value backs up). Kernel and plain version compared on every
+    field; the data is checked to hold each kind of tie."""
+    _need_card()
+    from minizero_tpu_torch.ops import tree_kernel_v2 as tv2
+    from minizero_tpu_torch.search import mcts
+
+    b, a = 1023, 8
+    cap = a + 2
+    spec = mcts.SearchSpec(action_size=a, num_simulations=cap - 1, use_gumbel=False,
+                           flip_player2_value=True, init_q_average=init_q_average)
+    packed = _crafted_v2_trees(b, a, cap, seed=3 + init_q_average)
+
+    # the root's scores where sqrt(n) = 0: ties are exact by construction
+    cx, pr = packed.cix[:, 0, :a], packed.prior[:, 0, :a]
+    mat = (cx >= 0) | (cx <= -3)
+    child = torch.where(cx >= 0, cx, -3 - cx).long().clamp(0, cap - 1)
+    q = torch.gather(packed.mean, 1, child)
+    q = torch.where((packed.cix[:, 0, a + 2] == 2)[:, None], -q, q)
+    sum_q = torch.where(mat, q, 0.0).double().sum(-1).float()
+    nv = mat.sum(-1).float()
+    init_q = (torch.where(nv > 0, sum_q / nv.clamp(min=1.0), torch.ones_like(sum_q))
+              if init_q_average else (sum_q - 1.0) / (nv + 1.0))
+    score = torch.where(mat, q, torch.where(cx == -1, init_q[:, None], -torch.inf))
+    tb = torch.where(mat, torch.gather(packed.pedge, 1, child), pr)
+    flat = packed.visits[:, 0] == 1.0
+    top = (score == score.amax(-1, keepdim=True)) & ((cx == -1) | mat) & flat[:, None]
+    ties = top.sum(-1) >= 2
+    tb_top = torch.where(top, tb, -torch.inf)
+    equal_tb = ties & ((tb_top == tb_top.amax(-1, keepdim=True)) & top).sum(-1).ge(2)
+    assert int(equal_tb.sum()) > 0 and int((ties & ~equal_tb).sum()) > 0
+    signed = top & (torch.signbit(tb) | torch.signbit(score))
+    assert int((signed.any(-1) & ties).sum()) > 0
+
+    rng = np.random.default_rng(9 + init_q_average)
+    policy = torch.from_numpy(rng.dirichlet(np.ones(a), size=b).astype(np.float32)).cuda()
+    legal = torch.from_numpy(rng.random((b, a)) < 0.8).cuda()
+    terminal = torch.from_numpy(rng.random(b) < 0.3).cuda()
+    value = torch.from_numpy(rng.uniform(-1, 1, size=b).astype(np.float32)).cuda()
+    turn = torch.from_numpy(rng.integers(1, 3, size=b).astype(np.int32)).cuda()
+    leaf = (policy, legal, terminal, value, turn)
+    sel = tv2.empty_selection_v2(spec, b, cap, "cuda")
+    packed, sel = _v2_step_checked(spec, packed, sel, leaf, 0, 0)
+    revisits = int((~sel.is_new).sum())
+    assert revisits > 0 and int(sel.is_new.sum()) > 0
+    _v2_step_checked(spec, packed, sel, leaf, cap - 1, 1)
+
+
+@pytest.mark.gpu
+def test_tree_step_v2_kernel_at_a_ragged_batch_with_revisits():
+    """Random trees at the Go 9x9 action count (A = 82) and B = 1023, capacity
+    stages 17 -> 33 -> 41, with many terminal leaves (revisits back up their
+    stored value): kernel and plain version from the same state at every
+    simulation."""
+    _need_card()
+    from minizero_tpu_torch.ops import tree_kernel_v2 as tv2
+    from minizero_tpu_torch.search import mcts
+
+    b, a, sims = 1023, 82, 40
+    spec = mcts.SearchSpec(action_size=a, num_simulations=sims, use_gumbel=False,
+                           flip_player2_value=True, init_q_average=False)
+    g = torch.Generator(device="cuda").manual_seed(17)
+
+    def leaf_inputs():
+        policy = torch.softmax(torch.randn((b, a), generator=g, device="cuda") * 3.0, -1)
+        legal = torch.rand((b, a), generator=g, device="cuda") < 0.9
+        legal[:, 0] = True
+        terminal = torch.rand((b,), generator=g, device="cuda") < 0.4
+        value = torch.rand((b,), generator=g, device="cuda") * 2.0 - 1.0
+        turn = (1 + (torch.rand((b,), generator=g, device="cuda") < 0.5)).to(torch.int32)
+        return policy, legal.contiguous(), terminal, value, turn
+
+    policy, legal, _, _, _ = leaf_inputs()
+    caps = [17, 33, sims + 1]
+    packed = _v2_root(spec, b, caps[0], policy, legal)
+    sel = tv2.empty_selection_v2(spec, b, caps[0], "cuda")
+    cap_i, revisits = 0, 0
+    for sim in range(sims + 1):
+        if sim >= caps[cap_i]:
+            cap_i += 1
+            packed = tv2.grow(packed, caps[cap_i])
+            extra = caps[cap_i] - sel.path.shape[1]
+            sel.path = torch.cat([sel.path, torch.zeros((b, extra), dtype=torch.bool,
+                                                        device="cuda")], 1)
+        phase = 0 if sim == 0 else 1
+        revisits += int((~sel.is_new).sum()) if phase else 0
+        packed, sel = _v2_step_checked(spec, packed, sel, leaf_inputs(), sim, phase)
+    assert revisits > 0
+
+
+def _tied_leaf(b, a):
+    """Leaf priors and logits drawn from a few values (priors include -0.0
+    and +0.0), so that PUCT scores and the Gumbel root step's logits tie."""
+    priors = torch.tensor([-0.0, 0.0, 0.125, 0.25], device="cuda")
+
+    def make(g):
+        idx = torch.randint(0, 4, (b, a), generator=g, device="cuda")
+        logit = torch.randint(0, 2, (b, a), generator=g, device="cuda").float()
+        return priors[idx], logit
+    return make
+
+
+@pytest.mark.gpu
+def test_tree_step_halving_ticks_and_ties_in_the_board_regime():
+    """Gumbel AlphaZero at the Go 9x9 action count (A = 82), n = 32, m = 8
+    (two halving ticks: 8 -> 4 -> 2) and B = 1023, on leaves whose priors
+    and logits tie (-0.0 and +0.0 among them): every step's halving tick,
+    root step and PUCT descent, kernel against the plain version; every
+    game halves its candidates."""
+    _need_card()
+    from minizero_tpu_torch.search import mcts
+
+    b, a = 1023, 82
+    spec = mcts.SearchSpec(action_size=a, num_simulations=32, use_gumbel=True,
+                           use_gumbel_noise=False, use_dirichlet_noise=False,
+                           gumbel_sample_size=8, flip_player2_value=True)
+    trees, _, _ = _reward_regime_steps(spec, b, 61, _tied_leaf(b, a), rewards=False)
+    assert int(trees.gumbel_sample_size.max()) < 8
+
+
+@pytest.mark.gpu
+def test_tree_step_reward_regime_chain_of_n_levels_with_rescale():
+    """The reward regime with value rescale on a chain (every prior on
+    action 0) of N = 129 nodes at B = 1023: the last backups walk 128
+    parent pointers through shared memory, discounting through rewards of
+    size ~100. Kernel and plain version on every step."""
+    _need_card()
+    from minizero_tpu_torch.search import mcts
+
+    b, a, sims = 1023, 18, 128
+    spec = mcts.SearchSpec(action_size=a, num_simulations=sims, use_gumbel=False,
+                           use_dirichlet_noise=False, flip_player2_value=False, discount=0.997,
+                           value_rescale=True, init_q_average=True)
+
+    def chain_leaf(g):
+        logit = torch.full((b, a), -30.0, device="cuda")
+        logit[:, 0] = 0.0
+        return torch.softmax(logit, -1), logit
+
+    trees, _, depth = _reward_regime_steps(spec, b, 71, chain_leaf, reward_scale=100.0)
+    assert depth == sims + 1
+    assert bool((trees.visits[:, 0] == sims + 1).all())
 
 
 def test_port_and_chip_smoke_import_without_jax():

@@ -83,3 +83,49 @@ def test_init_network_is_seeded_and_torch_default():
         out = a(feats)
     assert out["policy"].shape == (2, 82) and out["value"].shape == (2, 1)
     torch.testing.assert_close(out["policy"].sum(-1), torch.ones(2))
+
+
+def test_trained_az200_weights_match_the_jax_checkpoint():
+    """The trained Go 9x9 az n=200 net that the port reads from
+    ``minizero_tpu_torch/assets/`` (exported by
+    ``scripts/export_trained_weights.py``) against the JAX net loaded from
+    its ``.ckpt`` under ``runs/``: the same variables, and the same forward
+    pass within 1e-4 on random boards."""
+    import os
+
+    from minizero_tpu.config import algorithm_preset as jpreset
+    from minizero_tpu.config import default_config as jdefault
+    from minizero_tpu.envs import make_env as jmake_env
+    from minizero_tpu.eval.match import load_checkpoint_variables
+    from minizero_tpu.models.factory import create_network as jcreate
+    from minizero_tpu_torch.weights import load_variables_npz
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ckpt = os.path.join(root, "runs", "go9_az200_r3b", "model", "weight_iter_25000.ckpt")
+    npz = os.path.join(root, "minizero_tpu_torch", "assets", "go9_az200_r3b_iter25000.npz")
+    jcfg = jdefault("go", **jpreset("az")).replace(actor_num_simulation=200)
+    jenv = jmake_env(jcfg)
+    jnet = jcreate(jcfg, jenv.spec)
+    variables = load_checkpoint_variables(ckpt, jcfg, jnet, jenv.spec)
+    feats = np.random.default_rng(25).integers(0, 2, size=(8, 9, 9, 18)).astype(np.float32)
+    want = jnet.apply(variables, jnp.asarray(feats), train=False)
+
+    loaded = load_variables_npz(npz)
+    flat_j = jax.tree_util.tree_leaves_with_path(variables)
+    assert len(flat_j) == sum(1 for _ in jax.tree_util.tree_leaves(loaded))
+    for path, leaf in flat_j:
+        node = loaded
+        for k in path:
+            node = node[k.key]
+        np.testing.assert_array_equal(node, np.asarray(leaf))
+
+    cfg = default_config("go", **algorithm_preset("az"), actor_num_simulation=200)
+    env = make_env(cfg)
+    net = create_network(cfg, env.spec)
+    net.load_state_dict(from_jax_variables(loaded, hidden_hw=81))
+    net.eval()
+    with torch.no_grad():
+        got = net(torch.from_numpy(feats))
+    for key in ("policy", "policy_logit", "value"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), rtol=0, atol=ATOL,
+                                   err_msg=key)
