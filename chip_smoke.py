@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Drives the port's self-play and search paths (``minizero_tpu_torch``) at
 full width, with 1 x 256 nets made from a seed and bf16 inference, and holds
@@ -10,7 +10,7 @@ every CUDA kernel of them against its plain PyTorch version on the card:
   B1, ``csrc/tree_step.cu``, board regime);
 - the large-N Go 9x9 AlphaZero path, n=200, 1024 games (tree step B2,
   ``csrc/tree_step_v2.cu``, and the parent-state row gather B3,
-  ``csrc/gather_rows.cu``);
+  ``csrc/gather_rows.cu``, every launch on its 16-byte aligned path);
 - Go 9x9 Gumbel MuZero, n=16, 1024 games (tree step B1, board regime, with
   the MuZero network and its hidden-state store);
 - the Atari MuZero search, n=50, 256 games on random features, as the JAX
@@ -30,9 +30,18 @@ Phases:
      launch counter set to 0 just before and read just after, legality of
      every action, env-steps/s or ms per search, and each kernel's time
      beside its plain version's, its bound and (where one PyTorch call
-     computes the same function) that call's;
+     computes the same function) that call's; B3 also with L2 flushed
+     before each launch, on the indices of a random-init and of a trained
+     net's move, beside the floor of its grid (a kernel that reads the
+     indices only) and beside the other designs and games-per-block counts
+     of ``csrc/gather_rows_bench.cu``;
   5. where the device time goes: one move or search of each path under
-     ``torch.profiler``.
+     ``torch.profiler``; B3's time in a move per launch.
+
+``--parent DIR``: the root of a checkout of an earlier commit; its
+``minizero_tpu_torch/csrc/gather_rows.cu`` is built too and timed beside B3
+on the same blob and indices (warm and cold), at the state's own width and
+at the padded stride.
 
 Prints one progress line per phase, then a JSON line of kernel numbers, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -42,7 +51,9 @@ is present. Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import argparse
 import copy
+import ctypes
 import dataclasses
 import json
 import os
@@ -50,6 +61,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -66,8 +78,16 @@ AZ_SCAN_MOVES = 4
 ATARI_BATCH = 256
 ATARI_SIMS = 50
 ATARI_SEARCHES = 3
-# B2 timed at one simulation of each capacity stage (65, 129, 201)
+# B2 timed at one simulation of each capacity stage (65, 129, 201); B3 at
+# the gather of simulation 190
 V2_TIMED_SIMS = (60, 120, AZ_SIMS - 10)
+B3_TIMED_SIM = AZ_SIMS - 10
+# B3's designs and games per block (csrc/gather_rows_bench.cu); L2 flush
+# between cold launches (the card's L2 is 50 MB)
+B3_DESIGNS = ("warp", "bulk")
+B3_GAMES_PER_BLOCK = (2, 4, 8, 16)
+B3_ROUNDS = 3
+FLUSH_BYTES = 128 << 20
 # the trained az n=200 net (scripts/export_trained_weights.py), and the
 # moves it plays before its timed move
 TRAINED_NPZ = os.path.join("minizero_tpu_torch", "assets", "go9_az200_r3b_iter25000.npz")
@@ -363,7 +383,9 @@ class TreeStepV2Check(TreeStepCheck):
 class GatherCheck:
     """Wraps the engine's row gather: each call runs the CUDA kernel and the
     plain version and compares the rows (the main path skips no game, so
-    every row is defined). Keeps the index of gather ``keep_call``."""
+    every row is defined), and counts the calls on the aligned path. Keeps
+    the index of gather ``keep_call`` (call k gathers for simulation
+    k + 1)."""
 
     def __init__(self, keep_call: int):
         from minizero_tpu_torch.ops.gather_rows import gather_rows, gather_rows_reference
@@ -373,13 +395,16 @@ class GatherCheck:
         self.keep_call = keep_call
         self.kept_idx = None
         self.calls = 0
+        self.aligned_calls = 0
         self.elems = 0
         self.max_abs_err = 0.0
 
     def __call__(self, x, idx):
         if self.calls == self.keep_call:
             self.kept_idx = idx.clone()
+        before = self.kernel.launches_aligned
         got = self.kernel(x, idx)
+        self.aligned_calls += self.kernel.launches_aligned - before
         want = self.plain(x, idx)
         if not torch.equal(got, want):
             bad = int((got != want).sum())
@@ -389,6 +414,107 @@ class GatherCheck:
         self.elems += got.numel()
         self.calls += 1
         return got
+
+
+def time_each(fn, reps: int = 50, flush: bool = True) -> float:
+    """Mean ms of one call of ``fn()`` with CUDA events around each call
+    alone (card clock). With ``flush`` a 128 MB buffer is written before
+    each call, so that the call finds L2 cold. The card is held on a sleep
+    kernel while the host enqueues, as in ``time_events``."""
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(50_000_000)
+    for i, (start, end) in enumerate(events):
+        if flush:
+            buf.fill_(i)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def gather_launcher(lib, symbol: str, *lead: int, aligned_arg: bool = False):
+    """``(x, idx) -> out`` through the C launcher ``symbol`` of ``lib``,
+    whose arguments are ``lead``, then B, N, W, x, idx, out, (with
+    ``aligned_arg``) the aligned-path flag, and the stream; fails on a
+    refused launch."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = ([ctypes.c_int] * (len(lead) + 3) + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * aligned_arg + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def run(x, idx):
+        b, n, w = x.shape
+        out = torch.empty((b, w), dtype=torch.int32, device=x.device)
+        flag = [int(w % 4 == 0 and x.data_ptr() % 16 == 0)] * aligned_arg
+        rc = fn(*lead, b, n, w, x.data_ptr(), idx.data_ptr(), out.data_ptr(), *flag,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"{symbol}{lead}: launch refused (cudaError {rc})")
+        return out
+
+    return run
+
+
+def gather_rows_timings(sets, state_w: int, bench_lib, parent_lib):
+    """B3 at the main path's shapes beside its rivals. ``sets`` maps a name
+    to (blob, idx); the first set is the warm one. Every candidate (B3
+    itself, the library call ``x[arange(B), idx]``, the floor of B3's grid,
+    each design and games-per-block count of the bench source and, with
+    ``parent_lib``, an earlier commit's kernel at the state's own width and
+    at the padded stride) is first held word for word against the plain
+    version on every set (the floor excepted: it writes nothing), then
+    timed warm (back to back, as ``time_events``) and cold (L2 flushed, as
+    ``time_each``) on every set, in ``B3_ROUNDS`` round-robin rounds;
+    each number is the median of its rounds. Returns a dict of ms."""
+    from minizero_tpu_torch.ops.gather_rows import gather_rows, gather_rows_reference
+
+    floor = bench_lib.gather_rows_floor_launch
+    floor.argtypes, floor.restype = [ctypes.c_int] + [ctypes.c_void_p] * 3, ctypes.c_int
+    sink = torch.empty(1, dtype=torch.int32, device="cuda")
+
+    def floor_run(x, idx):
+        floor(x.shape[0], idx.data_ptr(), sink.data_ptr(), torch.cuda.current_stream().cuda_stream)
+
+    # the library call's index tensors, made once per set as a caller would
+    # keep them
+    long_idx = {id(j): (torch.arange(x.shape[0], device=x.device), j.long())
+                for x, j in sets.values()}
+
+    def library(x, idx):
+        return x[long_idx[id(idx)]]
+
+    cands = {"B3": (gather_rows, sets), "library": (library, sets), "floor": (floor_run, sets)}
+    for d, design in enumerate(B3_DESIGNS):
+        for g in B3_GAMES_PER_BLOCK:
+            cands[f"{design} G={g}"] = (
+                gather_launcher(bench_lib, "gather_rows_bench_launch", d, g), sets)
+    if parent_lib is not None:
+        run = gather_launcher(parent_lib, "gather_rows_launch",
+                              aligned_arg=hasattr(parent_lib, "gather_rows_games_per_block"))
+        bare = {k: (x[..., :state_w].contiguous(), j) for k, (x, j) in sets.items()}
+        cands[f"parent W={state_w}"] = (run, bare)
+        cands["parent W=stride"] = (run, sets)
+    for name, (run, variant) in cands.items():
+        for k, (x, j) in variant.items():
+            if name != "floor" and not torch.equal(run(x, j), gather_rows_reference(x, j)):
+                fail(f"B3 candidate {name}: rows differ from the plain version on the {k} indices")
+    samples = {name: {"warm": [], **{k: [] for k in sets}} for name in cands}
+    for _ in range(B3_ROUNDS):
+        for name, (run, variant) in cands.items():
+            x0, j0 = next(iter(variant.values()))
+            samples[name]["warm"].append(time_events(lambda i: run(x0, j0), 50))
+            for k, (x, j) in variant.items():
+                samples[name][k].append(time_each(lambda x=x, j=j: run(x, j)))
+    r = {name: {key: sorted(v)[len(v) // 2] for key, v in d.items()} for name, d in samples.items()}
+    blob, idx = next(iter(sets.values()))
+    r["B3"]["warm_each"] = time_each(lambda: gather_rows(blob, idx), flush=False)
+    r["plain"] = time_events(lambda i: gather_rows_reference(blob, idx), 20, hold=False)
+    return r
 
 
 def tree_step_v2_work(kept, nsel, after):
@@ -714,6 +840,11 @@ def small_atari_card_vs_cpu(cfg) -> str:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent", metavar="DIR", default=None,
+                        help="root of a checkout of an earlier commit whose B3 "
+                             "(minizero_tpu_torch/csrc/gather_rows.cu) is timed beside this one's")
+    args = parser.parse_args()
     sys.path.insert(0, ROOT)
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
@@ -723,7 +854,8 @@ def main() -> None:
     from minizero_tpu_torch.envs.atari import atari_spec
     from minizero_tpu_torch.models.factory import create_network, init_network
     from minizero_tpu_torch.ops import _build
-    from minizero_tpu_torch.ops.gather_rows import gather_rows, gather_rows_reference
+    from minizero_tpu_torch.ops.gather_rows import gather_rows
+    from minizero_tpu_torch.ops.state_blob import blob_spec
     from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
     from minizero_tpu_torch.ops.tree_kernel_v2 import fused_tree_step_v2
     from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
@@ -737,11 +869,12 @@ def main() -> None:
         return {"tree_step": fused_tree_step.launches,
                 "tree_step_rewards": fused_tree_step.launches_rewards,
                 "tree_step_v2": fused_tree_step_v2.launches,
-                "gather_rows": gather_rows.launches}
+                "gather_rows": gather_rows.launches,
+                "gather_rows_aligned": gather_rows.launches_aligned}
 
     def zero_counts():
         fused_tree_step.launches = fused_tree_step.launches_rewards = 0
-        fused_tree_step_v2.launches = gather_rows.launches = 0
+        fused_tree_step_v2.launches = gather_rows.launches = gather_rows.launches_aligned = 0
 
     # ---- 1. device -----------------------------------------------------------
     card = card_line()
@@ -751,24 +884,38 @@ def main() -> None:
         f"{count} device(s), using {kind}")
 
     # ---- 2. build --------------------------------------------------------------
-    kernels = ["tree_step", "tree_step_v2", "gather_rows"]
+    kernels = ["tree_step", "tree_step_v2", "gather_rows", "gather_rows_bench"]
     t = time.perf_counter()
-    builds = _build.build(kernels)
-    for res in builds:
+    with ThreadPoolExecutor(2) as pool:  # the parent's source beside the others
+        own = pool.submit(_build.build, kernels)
+        parent = None if args.parent is None else pool.submit(
+            _build.build, ["gather_rows"], os.path.join(args.parent, "minizero_tpu_torch", "csrc"))
+        builds = [(res, "") for res in own.result()]
+        if parent is not None:
+            builds += [(res, f" of {args.parent}") for res in parent.result()]
+    for res, where in builds:
         usage = "; ".join(re.sub(r"\s+", " ", line.split(":", 1)[1]).strip()
                           for line in res.log.splitlines() if "Used" in line)
-        log(f"phase 2 build: {res.name}.cu in {res.seconds:.2f} s (ptxas: {usage or 'n/a'})")
-    # registers and shared memory per 128-thread block (cudaFuncGetAttributes;
-    # the dynamic size is what a launch at these shapes asks for)
+        log(f"phase 2 build: {res.name}.cu{where} in {res.seconds:.2f} s (ptxas: {usage or 'n/a'})")
+    bench_lib = _build.load("gather_rows_bench")
+    parent_lib = None if parent is None else ctypes.CDLL(builds[-1][0].path)
+    # registers and shared memory per block (cudaFuncGetAttributes; the
+    # dynamic size is what a launch at these shapes asks for): the tree
+    # steps run 128-thread blocks, B3 one warp per game
     def attrs(d):
         return (f"{d['registers']} registers, {d['static_smem']} bytes static + "
                 f"{d['dynamic_smem']} bytes dynamic shared memory per block")
 
-    for what, name, shape in (("tree_step (gaz/gmz: A=82, N=17)", "tree_step", (82, 17)),
-                              ("tree_step (Atari: A=18, N=51)", "tree_step", (18, 51)),
-                              *((f"tree_step_v2 (A=82, cap {c})", "tree_step_v2", (82, c))
+    games_per_block = _build.load("gather_rows").gather_rows_games_per_block
+    games_per_block.argtypes, games_per_block.restype = [], ctypes.c_int
+    b3_games = games_per_block()
+    for what, name, shape in (("tree_step (gaz/gmz: A=82, N=17; 128 threads)", "tree_step", (82, 17)),
+                              ("tree_step (Atari: A=18, N=51; 128 threads)", "tree_step", (18, 51)),
+                              *((f"tree_step_v2 (A=82, cap {c}; 128 threads)", "tree_step_v2", (82, c))
                                 for c in (65, 129, AZ_SIMS + 1)),
-                              ("gather_rows", "gather_rows", ())):
+                              *((f"gather_rows, {path} path ({b3_games} games, {32 * b3_games} "
+                                 f"threads)", "gather_rows", (flag,))
+                                for path, flag in (("aligned", 1), ("generic", 0)))):
         log(f"phase 2 {what}: {attrs(_build.kernel_attributes(name, *shape))}")
     log(f"phase 2 build done in {time.perf_counter() - t:.2f} s (nvcc processes in parallel)")
 
@@ -815,7 +962,7 @@ def main() -> None:
         f"{az_cfg.nn_num_hidden_channels} bf16, B={BATCH}, N={az_spec.max_nodes}, "
         f"A={az_spec.action_size}, state row {az_env.spec.name}")
     v2check = TreeStepV2Check(keep_sims=V2_TIMED_SIMS)
-    gcheck = GatherCheck(keep_call=AZ_SIMS - 10)
+    gcheck = GatherCheck(keep_call=B3_TIMED_SIM - 1)
     az.tree_step_v2, az.gather_rows = v2check, gcheck
     t = time.perf_counter()
     az_states = az.init_batch(BATCH)
@@ -827,12 +974,17 @@ def main() -> None:
              f"{v2check.calls} and {gcheck.calls}")
     if v2check.caps != {65, 129, AZ_SIMS + 1}:
         fail(f"v2 capacity stages {sorted(v2check.caps)}, expected [65, 129, {AZ_SIMS + 1}]")
-    blob_w = az._blob.shape[-1]
+    if gcheck.aligned_calls != gcheck.calls:
+        fail(f"{gcheck.calls - gcheck.aligned_calls} of {gcheck.calls} row gathers left the "
+             f"aligned path")
+    # the bound counts the state's own words, not the row stride's pad
+    state_w, stride_w = blob_spec(az_states).width, az._blob.shape[-1]
     log(f"phase 3c kernel vs plain (az n={AZ_SIMS}): {v2check.calls} v2 tree steps equal at caps "
         f"{sorted(v2check.caps)}; {v2check.int_elems} integer elements exact, "
         f"{v2check.float_elems} float elements, max |diff| {v2check.max_abs_err:.3g} "
-        f"(tol {FLOAT_ATOL}); {gcheck.calls} row gathers equal, {gcheck.elems} words exact "
-        f"(row {blob_w} words); in {time.perf_counter() - t:.2f} s")
+        f"(tol {FLOAT_ATOL}); {gcheck.calls} row gathers equal, {gcheck.elems} words exact, "
+        f"{gcheck.aligned_calls} on the aligned path (state row {state_w} words at a stride of "
+        f"{stride_w}); in {time.perf_counter() - t:.2f} s")
 
     # 3d. a small large-N search (n=50: the v2 loop) on the card and the CPU
     t = time.perf_counter()
@@ -891,7 +1043,7 @@ def main() -> None:
     elapsed = time.perf_counter() - t
     gaz_launches = counts()
     want = {"tree_step": SCAN_MOVES * (spec.num_simulations + 1), "tree_step_rewards": 0,
-            "tree_step_v2": 0, "gather_rows": 0}
+            "tree_step_v2": 0, "gather_rows": 0, "gather_rows_aligned": 0}
     if gaz_launches != want:
         fail(f"gaz main path launches {gaz_launches}, expected {want}")
     check_scan(engine, start_states, scan, end_states, SCAN_MOVES, "gaz main path")
@@ -921,8 +1073,9 @@ def main() -> None:
     torch.cuda.synchronize()
     az_elapsed = time.perf_counter() - t
     az_launches = counts()
+    # every gather of the az path on the aligned path
     want = {"tree_step": 0, "tree_step_rewards": 0, "tree_step_v2": AZ_SCAN_MOVES * (AZ_SIMS + 1),
-            "gather_rows": AZ_SCAN_MOVES * AZ_SIMS}
+            "gather_rows": AZ_SCAN_MOVES * AZ_SIMS, "gather_rows_aligned": AZ_SCAN_MOVES * AZ_SIMS}
     if az_launches != want:
         fail(f"az main path launches {az_launches}, expected {want}")
     check_scan(az, az_start, az_scan, az_end, AZ_SCAN_MOVES, "az main path")
@@ -931,7 +1084,7 @@ def main() -> None:
     log(f"phase 4b main path (az n={AZ_SIMS}): move_scan {AZ_SCAN_MOVES} moves x {BATCH} games in "
         f"{az_elapsed:.3f} s: {az_steps_per_s:.1f} env-steps/s, {az_ms_per_move:.1f} ms/move; "
         f"launches {az_launches} (= {AZ_SCAN_MOVES} x {AZ_SIMS + 1} v2 tree steps, "
-        f"{AZ_SCAN_MOVES} x {AZ_SIMS} gathers); all actions legal; "
+        f"{AZ_SCAN_MOVES} x {AZ_SIMS} gathers, all aligned); all actions legal; "
         f"{int((az_scan.resigned | az_scan.ended).sum())} games finished")
 
     # B2 at one simulation of each capacity stage (the last: cap 201, deep
@@ -944,19 +1097,6 @@ def main() -> None:
             f"{warm_selection_ms(kept2):.4f} ms, plain {p2_ms:.3f} ms, bound {bound2_ms:.5f} ms "
             f"({byts2} bytes, {flops2} flops)")
 
-    # B3 on the engine's blob at the kept gather's indices, beside its plain
-    # version, the library call and its bound
-    blob, gidx = az._blob, gcheck.kept_idx
-    k3_ms = time_events(lambda i: gather_rows(blob, gidx), 50)
-    p3_ms = time_events(lambda i: gather_rows_reference(blob, gidx), 20, hold=False)
-    rows_b, gidx_l = torch.arange(BATCH, device=blob.device), gidx.long()
-    l3_ms = time_events(lambda i: blob[rows_b, gidx_l], 50)
-    byts3 = 2 * int((gidx >= 0).sum()) * blob_w * 4 + BATCH * 4
-    bound3_ms = byts3 / HBM_BYTES_PER_S * 1e3
-    log(f"gather_rows [{BATCH}, {blob.shape[1]}, {blob_w}] int32: kernel {k3_ms:.4f} ms, plain "
-        f"{p3_ms:.4f} ms, library x[arange(B), idx] {l3_ms:.4f} ms, bound {bound3_ms:.5f} ms "
-        f"({byts3} bytes)")
-
     # 4b'. B2 on a trained net's walks: the az n=200 net of runs/go9_az200_r3b
     # (iteration 25000) plays a few moves, then one move whose simulation
     # 190 is held against the plain version and timed
@@ -967,19 +1107,51 @@ def main() -> None:
     t = time.perf_counter()
     _, tr_states, _, _ = tr.move_scan(tr.init_batch(BATCH), num_moves=TRAINED_WARM_MOVES)
     tr_check = TreeStepV2Check(keep_sims=(AZ_SIMS - 10,), check_sims={AZ_SIMS - 10})
-    tr.tree_step_v2 = tr_check
+    tr_gcheck = GatherCheck(keep_call=B3_TIMED_SIM - 1)
+    tr.tree_step_v2, tr.gather_rows = tr_check, tr_gcheck
     tr.move(tr_states)
     torch.cuda.synchronize()
-    tr.tree_step_v2 = fused_tree_step_v2
+    tr.tree_step_v2, tr.gather_rows = fused_tree_step_v2, gather_rows
     if tr_check.calls != 1 or AZ_SIMS - 10 not in tr_check.kept:
         fail(f"trained az move: {tr_check.calls} checked v2 tree steps, expected 1")
+    if tr_gcheck.calls != AZ_SIMS or tr_gcheck.aligned_calls != AZ_SIMS:
+        fail(f"trained az move: {tr_gcheck.calls} row gathers ({tr_gcheck.aligned_calls} "
+             f"aligned), expected {AZ_SIMS}, all aligned")
     kt_ms, pt_ms, boundt_ms, _, bytst, flopst, deptht = tree_step_v2_numbers(
         tr_check.kept[AZ_SIMS - 10])
     log(f"phase 4b' trained az n={AZ_SIMS} ({TRAINED_NPZ}), move {TRAINED_WARM_MOVES + 1}: "
         f"tree_step_v2 at sim {AZ_SIMS - 10} equal to its plain version (max |diff| "
         f"{tr_check.max_abs_err:.3g}); deepest next path {deptht} nodes: kernel {kt_ms:.4f} ms, "
-        f"plain {pt_ms:.3f} ms, bound {boundt_ms:.5f} ms ({bytst} bytes, {flopst} flops); in "
+        f"plain {pt_ms:.3f} ms, bound {boundt_ms:.5f} ms ({bytst} bytes, {flopst} flops); "
+        f"{tr_gcheck.calls} row gathers equal to the plain version, all aligned; in "
         f"{time.perf_counter() - t:.2f} s")
+
+    # B3 at the gather of simulation 190: warm on the random-init move's
+    # indices, cold on those and on the trained net's, beside the floor of
+    # its grid, its plain version, the library call, the bench designs and
+    # (with --parent) the parent's kernel; the bound counts the state's own
+    # words (2 * valid rows * 697 * 4 + B * 4 bytes)
+    t = time.perf_counter()
+    sets = {"random-init": (az._blob, gcheck.kept_idx), "trained": (tr._blob, tr_gcheck.kept_idx)}
+    b3 = gather_rows_timings(sets, state_w, bench_lib, parent_lib)
+    byts3 = 2 * int((gcheck.kept_idx >= 0).sum()) * state_w * 4 + BATCH * 4
+    bound3_ms = byts3 / HBM_BYTES_PER_S * 1e3
+    k3_ms, p3_ms, l3_ms = b3["B3"]["warm"], b3["plain"], b3["library"]["warm"]
+    log(f"gather_rows [{BATCH}, {az._blob.shape[1]}, {stride_w}] int32 (state {state_w} words), "
+        f"{b3_games} games a block, aligned path, gather of sim {B3_TIMED_SIM} (median of "
+        f"{B3_ROUNDS} rounds): warm {k3_ms:.5f} ms back to back ({b3['B3']['warm_each']:.5f} ms "
+        f"with events around each launch), cold {b3['B3']['random-init']:.5f} ms (random-init "
+        f"indices, {int(gcheck.kept_idx.unique().numel())} distinct node indices) and "
+        f"{b3['B3']['trained']:.5f} ms (trained net's, {int(tr_gcheck.kept_idx.unique().numel())} "
+        f"distinct node indices); floor of the grid warm {b3['floor']['warm']:.5f} ms, cold "
+        f"{b3['floor']['random-init']:.5f} ms; plain {p3_ms:.4f} ms; library x[arange(B), idx] "
+        f"warm {l3_ms:.5f} ms, cold {b3['library']['random-init']:.5f} / "
+        f"{b3['library']['trained']:.5f} ms; bound {bound3_ms:.5f} ms ({byts3} bytes); in "
+        f"{time.perf_counter() - t:.2f} s")
+    log("B3 candidates, ms warm / cold random-init / cold trained (median of "
+        f"{B3_ROUNDS} rounds; each equal to the plain version): " + "; ".join(
+            f"{name} {v['warm']:.5f} / {v['random-init']:.5f} / {v['trained']:.5f}"
+            for name, v in b3.items() if name not in ("B3", "library", "floor", "plain")))
 
     # 4c. Go 9x9 Gumbel MuZero: a warm-up move with every tree step beside
     # its plain version, then move_scan
@@ -1010,7 +1182,7 @@ def main() -> None:
     mz_elapsed = time.perf_counter() - t
     mz_launches = counts()
     want = {"tree_step": SCAN_MOVES * (mz_spec.num_simulations + 1), "tree_step_rewards": 0,
-            "tree_step_v2": 0, "gather_rows": 0}
+            "tree_step_v2": 0, "gather_rows": 0, "gather_rows_aligned": 0}
     if mz_launches != want:
         fail(f"gmz main path launches {mz_launches}, expected {want}")
     check_scan(mz, mz_start, mz_scan, mz_end, SCAN_MOVES, "gmz main path")
@@ -1034,7 +1206,7 @@ def main() -> None:
     at_elapsed = time.perf_counter() - t
     at_launches = counts()
     want = {"tree_step": 0, "tree_step_rewards": ATARI_SEARCHES * (ATARI_SIMS + 1),
-            "tree_step_v2": 0, "gather_rows": 0}
+            "tree_step_v2": 0, "gather_rows": 0, "gather_rows_aligned": 0}
     if at_launches != want:
         fail(f"Atari search launches {at_launches}, expected {want}")
     check_search_result(at_res, ATARI_BATCH, at_spec.action_size, "timed Atari search")
@@ -1062,6 +1234,8 @@ def main() -> None:
     log(f"phase 5 tree_step_v2 per az move: {named['tree_step_v2_kernel']:.3f} ms over "
         f"{AZ_SIMS + 1} launches, {named['tree_step_v2_kernel'] / (AZ_SIMS + 1):.4f} ms per launch "
         f"on average")
+    log(f"phase 5 gather_rows per az move (in situ): {named['gather_rows_kernel']:.3f} ms over "
+        f"{AZ_SIMS} launches, {named['gather_rows_kernel'] / AZ_SIMS:.4f} ms per launch on average")
     line, _ = profile_run(lambda: mz.move(mz_end), mz_ms_per_move, ("tree_step_kernel",))
     log(f"phase 5 one profiled gmz move: {line}")
     with torch.no_grad():

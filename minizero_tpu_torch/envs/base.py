@@ -66,12 +66,15 @@ class Env:
     spec: EnvSpec
 
     def init(self, batch_size: int, device=None) -> Any:
-        """Initial states for ``batch_size`` games."""
+        """Initial states for ``batch_size`` games on ``device``: the CUDA
+        card by default, the CPU only when asked for by name
+        (``minizero_tpu_torch.resolve_device``: without a card the default
+        raises ``RuntimeError``)."""
         raise NotImplementedError
 
     def init_random(self, batch_size: int, generator=None, device=None) -> Any:
         """Initial states with per-episode randomness (scrambles, seeds);
-        deterministic envs ignore ``generator``."""
+        deterministic envs ignore ``generator``. ``device`` as in ``init``."""
         return self.init(batch_size, device=device)
 
     def step(self, state: Any, action: torch.Tensor) -> Any:

@@ -31,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from minizero_tpu_torch import resolve_device
 from minizero_tpu_torch.envs.base import Env, EnvSpec
 
 _HISTORY_PLANES = 8
@@ -207,7 +208,7 @@ class GoEnv(Env):
     # -------------------------------------------------------------- protocol
     def init(self, batch_size: int, device=None) -> GoState:
         nn = self.nn
-        dev = torch.device("cpu") if device is None else torch.device(device)
+        dev = resolve_device(device)
 
         def z(*shape, dtype):
             return torch.zeros((batch_size,) + shape, dtype=dtype, device=dev)

@@ -5,7 +5,10 @@ The large-N AlphaZero loop fetches the selected parent's packed env state
 (``ops/state_blob.py``) with it once per simulation. ``gather_rows``
 launches the hand-written CUDA kernel ``csrc/gather_rows.cu`` on CUDA
 tensors and calls ``gather_rows_reference``, its plain PyTorch version, on
-CPU tensors. Any ``B``, ``N`` and ``W`` are taken.
+CPU tensors. Any ``B``, ``N`` and ``W`` are taken. The kernel copies rows
+in 16-byte elements where ``W`` is a multiple of 4 words and both bases are
+16-byte aligned (the aligned path, which the engine's padded blob takes),
+else in 4-byte words (the generic path); the wrapper decides.
 
 A game whose index lies outside ``[0, N)`` (the engine passes -1 for "skip")
 gets no row: the kernel leaves that output row undefined and the plain
@@ -34,7 +37,7 @@ def _library():
 
     fn = _build.load("gather_rows").gather_rows_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -43,7 +46,8 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x`` int32[B, N, W], ``idx`` int32[B] -> int32[B, W].
 
     CUDA tensors: the CUDA kernel (``gather_rows.launches`` counts its
-    launches); CPU tensors: ``gather_rows_reference``."""
+    launches, ``gather_rows.launches_aligned`` those on the aligned path);
+    CPU tensors: ``gather_rows_reference``."""
     if x.device.type == "cpu" and idx.device.type == "cpu":
         return gather_rows_reference(x, idx)
     if x.device.type != "cuda" or idx.device != x.device:
@@ -58,12 +62,15 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError("gather_rows: x and idx must be contiguous")
     b, n, w = x.shape
     out = torch.empty((b, w), dtype=torch.int32, device=x.device)
-    rc = _library()(b, n, w, x.data_ptr(), idx.data_ptr(), out.data_ptr(),
+    aligned = w % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    rc = _library()(b, n, w, x.data_ptr(), idx.data_ptr(), out.data_ptr(), int(aligned),
                     torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gather_rows: CUDA kernel launch failed (cudaError {rc})")
     gather_rows.launches += 1
+    gather_rows.launches_aligned += int(aligned)
     return out
 
 
 gather_rows.launches = 0
+gather_rows.launches_aligned = 0

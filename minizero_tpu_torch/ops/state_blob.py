@@ -10,8 +10,9 @@ field is viewed as bytes, concatenated in field order, padded to a multiple
 of 4 bytes and viewed as int32. The port's state dataclasses declare their
 fields in the order of the JAX package's flax state classes, whose pytree
 flatten order is their field order, so a row here equals the JAX package's
-row for the same state word for word. The row is not padded further: the
-(8, 128) tiling of the JAX engine exists only for the TPU.
+row for the same state word for word. ``BlobSpec.width`` is the state's own
+width; the large-N engine stores rows at a stride rounded up to 4 words (16
+bytes, the card's copy width), not to the JAX engine's (8, 128) TPU tiles.
 """
 
 from __future__ import annotations
@@ -62,7 +63,9 @@ def pack_rows(spec: BlobSpec, states: Any) -> torch.Tensor:
 
 
 def unpack_rows(spec: BlobSpec, blob: torch.Tensor) -> Any:
-    """i32[B, W] -> batched state."""
+    """i32[B, W'] -> batched state, for any ``W' >= spec.width``: fields are
+    read by byte offset, so the words past ``spec.width`` (the engine's pad
+    to a 16-byte row stride) are ignored."""
     b = blob.shape[0]
     byts = blob.contiguous().view(torch.uint8)
     out = {}

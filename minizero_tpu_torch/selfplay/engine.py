@@ -288,23 +288,30 @@ class SelfPlayEngine:
     def _kernel_sim_loop_v2(self, trees: Tree, root_states, generator) -> Tree:
         """Large-N AlphaZero sim loop on the node-indexed v2 tree step.
 
-        Node states live in a packed int32 blob ``[B, N, W]``; each
+        Node states live in a packed int32 blob ``[B, N, Wp]``; each
         simulation gathers the selected parent's row (``self.gather_rows``),
         unpacks it, steps the env, evaluates the leaf, runs ONE v2 tree step
         and stores the leaf's row at slot ``s`` in place (node ``s`` is read
         only where this simulation created it, so the unconditional store is
         safe). Node capacity is staged (65 -> 129 -> ... -> N): simulations
-        in ``[lo, cap)`` run on capacity-``cap`` arrays."""
+        in ``[lo, cap)`` run on capacity-``cap`` arrays.
+
+        The row stride ``Wp`` is the state's ``bspec.width`` words rounded
+        up to a multiple of 4 (Go 9x9: 697 -> 700), so that every row starts
+        16-byte aligned and the gather takes its 16-byte path (the JAX
+        engine pads for its TPU DMAs the same way, to 128 words). The pad
+        words stay zero and ``unpack_rows`` ignores them."""
         spec, env = self.spec, self.env
         batch = trees.visits.shape[0]
         n = spec.max_nodes
         dev = trees.visits.device
         bspec = blob_spec(root_states)
-        shape = (batch, n, bspec.width)
+        w = bspec.width
+        shape = (batch, n, -(-w // 4) * 4)
         if self._blob is None or tuple(self._blob.shape) != shape or self._blob.device != dev:
-            self._blob = torch.empty(shape, dtype=torch.int32, device=dev)
+            self._blob = torch.zeros(shape, dtype=torch.int32, device=dev)
         blob = self._blob
-        blob[:, 0] = pack_rows(bspec, root_states)
+        blob[:, 0, :w] = pack_rows(bspec, root_states)
 
         caps = []
         c = 65
@@ -337,7 +344,7 @@ class SelfPlayEngine:
                 packed, sel = self.tree_step_v2(
                     spec, packed, sel, policy, env.legal_mask(leaf_states), leaf_terminal,
                     value, env.turn(leaf_states).to(torch.int32), s, 1)
-                blob[:, s] = pack_rows(bspec, leaf_states)
+                blob[:, s, :w] = pack_rows(bspec, leaf_states)
             lo = cap
         return unpack_trees(spec, packed, trees)
 

@@ -116,3 +116,22 @@ def test_go_random_playouts_exact(board_size, moves, batch):
                                       err_msg=f"move {step}: terminal")
         np.testing.assert_array_equal(np.asarray(jscore(js)), tenv.eval_score(ts).numpy(),
                                       err_msg=f"move {step}: score")
+
+
+@pytest.mark.parametrize("method", ["init", "init_random"])
+def test_go_init_puts_states_on_the_card_by_default(method):
+    """``GoEnv.init`` and ``init_random`` resolve their device as every
+    entry point of the port does: the card by default, raising where there
+    is none (the message names ``device='cpu'``); the CPU when asked for by
+    name, with the JAX package's initial state."""
+    env = TGoEnv(board_size=5)
+    make = getattr(env, method)
+    cpu = make(2, device="cpu")
+    assert {getattr(cpu, f.name).device.type for f in dataclasses.fields(cpu)} == {"cpu"}
+    _check_state(_jax_batch(JGoEnv(board_size=5), 2), cpu, 0)
+    if torch.cuda.is_available():
+        card = make(2)
+        assert {getattr(card, f.name).device.type for f in dataclasses.fields(card)} == {"cuda"}
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(2)

@@ -130,6 +130,31 @@ def test_engine_v2_moves_match_jax_engine(sims, force, num_moves):
     assert (fused_tree_step.launches, fused_tree_step_v2.launches, gather_rows.launches) == before
 
 
+def test_v2_blob_rows_have_a_16_byte_stride():
+    """After a move of the large-N loop the blob's rows are 4-word (16-byte)
+    aligned: the 5x5 state's 221 words sit at a stride of 224, the pad
+    words stay zero, and node 0's row unpacks to the root state."""
+    from minizero_tpu_torch.ops.state_blob import blob_spec, unpack_rows
+
+    over = _over("az")
+    over.update(actor_num_simulation=8, env_board_size=5, nn_num_blocks=1,
+                nn_num_hidden_channels=8, nn_num_value_hidden_channels=8)
+    cfg = default_config("go", **over)
+    env = make_env(cfg)
+    eng = SelfPlayEngine(env, cfg, init_network(create_network(cfg, env.spec), seed=2),
+                         use_bf16=False, device="cpu", _force_kernel_v2=True)
+    assert eng.use_tree_kernel_v2
+    states = eng.init_batch(3)
+    eng.move(states)
+    width = blob_spec(states).width
+    assert width == 221 and width % 4 != 0
+    assert tuple(eng._blob.shape) == (3, eng.spec.max_nodes, 224)
+    assert eng._blob.shape[-1] % 4 == 0
+    assert not eng._blob[:, :, width:].any()
+    root = unpack_rows(blob_spec(states), eng._blob[:, 0])
+    assert torch.equal(root.board, states.board) and torch.equal(root.turn, states.turn)
+
+
 def test_az200_takes_the_v2_path_and_gaz16_stays_on_v1():
     """The flagship AlphaZero config (n=200) builds and dispatches to the
     large-N loop; the Gumbel n=16 config keeps the v1 loop."""

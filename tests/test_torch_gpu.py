@@ -113,9 +113,11 @@ def test_tree_step_v2_and_gather_rows_kernels_match_plain_on_card():
         return got_p, got_s
 
     def checked_gather(x, idx):
-        before = gather_rows.launches
+        before = (gather_rows.launches, gather_rows.launches_aligned)
         got = gather_rows(x, idx)
-        assert gather_rows.launches == before + 1
+        # the engine's padded blob (697 -> 700 words) takes the aligned path
+        assert (gather_rows.launches, gather_rows.launches_aligned) == (before[0] + 1,
+                                                                         before[1] + 1)
         assert torch.equal(got, gather_rows_reference(x, idx))
         gathers.append(1)
         return got
@@ -182,25 +184,36 @@ def test_tree_step_v2_kernel_matches_plain_on_random_trees(init_q_average):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,n,w", [(5, 7, 697), (13, 12, 128), (1023, 201, 697), (64, 9, 8)])
-def test_gather_rows_kernel_matches_plain_on_card(b, n, w):
-    """Odd batches, node counts that are not a multiple of 8, the Go 9x9
-    row width (697 words, 4-byte copies) and widths that take 16-byte
-    copies; -1 and out-of-range indices are skipped (their rows are not
-    compared: the kernel leaves them undefined)."""
+@pytest.mark.parametrize("b,n,w,offset", [
+    (5, 7, 697, 0), (13, 12, 128, 0), (1023, 201, 697, 0), (64, 9, 8, 0),
+    (1024, 201, 700, 0), (1023, 201, 700, 0), (7, 1, 4, 0), (33, 9, 700, 1)])
+def test_gather_rows_kernel_matches_plain_on_card(b, n, w, offset):
+    """Odd batches and batches that are not a multiple of the kernel's games
+    per block, node counts that are not a multiple of 8 and N = 1, the Go
+    9x9 state (697 words: the generic path, 4-byte words) and the engine's
+    padded stride of it (700 words: the aligned path, 16-byte elements),
+    and a base 4 bytes off (a contiguous view at storage offset ``offset``:
+    the generic path); -1 and out-of-range indices are skipped (their rows
+    are not compared: the kernel leaves them undefined). Each case checks
+    which path's counter moved."""
     _need_card()
     from minizero_tpu_torch.ops.gather_rows import gather_rows, gather_rows_reference
 
     g = torch.Generator(device="cuda").manual_seed(b)
-    x = torch.randint(-2**31, 2**31 - 1, (b, n, w), generator=g, device="cuda", dtype=torch.int32)
+    base = torch.randint(-2**31, 2**31 - 1, (b * n * w + offset,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    x = base[offset:].view(b, n, w)
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
     idx = torch.randint(0, n, (b,), generator=g, device="cuda", dtype=torch.int32)
     skip = torch.rand((b,), generator=g, device="cuda") < 0.3
     idx = torch.where(skip, torch.where(torch.rand((b,), generator=g, device="cuda") < 0.5, -1, n),
                       idx).to(torch.int32)
-    before = gather_rows.launches
+    aligned = w % 4 == 0 and offset == 0
+    before = (gather_rows.launches, gather_rows.launches_aligned)
     got = gather_rows(x, idx)
     torch.cuda.synchronize()
-    assert gather_rows.launches == before + 1
+    assert (gather_rows.launches, gather_rows.launches_aligned) == (before[0] + 1,
+                                                                     before[1] + int(aligned))
     want = gather_rows_reference(x, idx)
     assert torch.equal(got[~skip], want[~skip])
     assert torch.equal(got[~skip], x[torch.arange(b, device="cuda"), idx.long().clamp(0, n - 1)][~skip])

@@ -66,6 +66,36 @@ def test_blob_roundtrip_and_jax_layout(board_size, moves):
         assert spec.width == 697  # 2,788 bytes per Go 9x9 state
 
 
+@pytest.mark.parametrize("board_size,moves", [(5, 40), (9, 60)])
+def test_unpack_rows_ignores_a_padded_stride(board_size, moves):
+    """The large-N engine stores rows at a stride rounded up to 4 words:
+    a row followed by random pad words unpacks to the same state as the
+    bare row."""
+    tenv = TGoEnv(board_size=board_size)
+    rng = np.random.default_rng(board_size)
+    ts = tenv.init(6, device="cpu")
+    for _ in range(moves):
+        legal = tenv.legal_mask(ts).numpy()
+        ts = tenv.step(ts, torch.from_numpy((rng.random(legal.shape) * legal).argmax(-1)
+                                            .astype(np.int32)))
+    spec = blob_spec(ts)
+    bare = pack_rows(spec, ts)
+    stride = -(-spec.width // 4) * 4
+    assert stride > spec.width  # 221 -> 224 (5x5), 697 -> 700 (9x9)
+    pad = torch.from_numpy(rng.integers(-2**31, 2**31, (6, stride - spec.width),
+                                        dtype=np.int64).astype(np.int32))
+    padded = torch.cat([bare, pad], dim=1)
+    want, got = unpack_rows(spec, bare), unpack_rows(spec, padded)
+    for f in dataclasses.fields(ts):
+        assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
+        assert torch.equal(getattr(got, f.name), getattr(ts, f.name)), f.name
+    # a padded row gathered from a [B, N, stride] blob unpacks the same way
+    blob = torch.stack([padded, torch.zeros_like(padded)], dim=1)
+    again = unpack_rows(spec, gather_rows(blob, torch.zeros(6, dtype=torch.int32)))
+    for f in dataclasses.fields(ts):
+        assert torch.equal(getattr(again, f.name), getattr(ts, f.name)), f.name
+
+
 @pytest.mark.parametrize("b,n,w", [(5, 7, 697), (13, 12, 128), (8, 8, 128), (12, 40, 256),
                                    (64, 208, 768)])
 def test_gather_rows_reference_matches_jax(b, n, w):
