@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py
 
 Drives the port's self-play and search paths (``minizero_tpu_torch``) at
 full width, with 1 x 256 nets made from a seed and bf16 inference, and holds
@@ -32,16 +32,10 @@ Phases:
      beside its plain version's, its bound and (where one PyTorch call
      computes the same function) that call's; B3 also with L2 flushed
      before each launch, on the indices of a random-init and of a trained
-     net's move, beside the floor of its grid (a kernel that reads the
-     indices only) and beside the other designs and games-per-block counts
-     of ``csrc/gather_rows_bench.cu``;
+     net's move, beside the floor of its grid (``csrc/gather_rows_floor.cu``,
+     a kernel that reads the indices only);
   5. where the device time goes: one move or search of each path under
      ``torch.profiler``; B3's time in a move per launch.
-
-``--parent DIR``: the root of a checkout of an earlier commit; its
-``minizero_tpu_torch/csrc/gather_rows.cu`` is built too and timed beside B3
-on the same blob and indices (warm and cold), at the state's own width and
-at the padded stride.
 
 Prints one progress line per phase, then a JSON line of kernel numbers, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -51,7 +45,6 @@ is present. Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
-import argparse
 import copy
 import ctypes
 import dataclasses
@@ -61,7 +54,6 @@ import re
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -82,10 +74,8 @@ ATARI_SEARCHES = 3
 # the gather of simulation 190
 V2_TIMED_SIMS = (60, 120, AZ_SIMS - 10)
 B3_TIMED_SIM = AZ_SIMS - 10
-# B3's designs and games per block (csrc/gather_rows_bench.cu); L2 flush
-# between cold launches (the card's L2 is 50 MB)
-B3_DESIGNS = ("warp", "bulk")
-B3_GAMES_PER_BLOCK = (2, 4, 8, 16)
+# B3's round-robin timing rounds; L2 flush between cold launches (the
+# card's L2 is 50 MB)
 B3_ROUNDS = 3
 FLUSH_BYTES = 128 << 20
 # the trained az n=200 net (scripts/export_trained_weights.py), and the
@@ -437,48 +427,26 @@ def time_each(fn, reps: int = 50, flush: bool = True) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
-def gather_launcher(lib, symbol: str, *lead: int, aligned_arg: bool = False):
-    """``(x, idx) -> out`` through the C launcher ``symbol`` of ``lib``,
-    whose arguments are ``lead``, then B, N, W, x, idx, out, (with
-    ``aligned_arg``) the aligned-path flag, and the stream; fails on a
-    refused launch."""
-    fn = getattr(lib, symbol)
-    fn.argtypes = ([ctypes.c_int] * (len(lead) + 3) + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * aligned_arg + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-
-    def run(x, idx):
-        b, n, w = x.shape
-        out = torch.empty((b, w), dtype=torch.int32, device=x.device)
-        flag = [int(w % 4 == 0 and x.data_ptr() % 16 == 0)] * aligned_arg
-        rc = fn(*lead, b, n, w, x.data_ptr(), idx.data_ptr(), out.data_ptr(), *flag,
-                torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            fail(f"{symbol}{lead}: launch refused (cudaError {rc})")
-        return out
-
-    return run
-
-
-def gather_rows_timings(sets, state_w: int, bench_lib, parent_lib):
-    """B3 at the main path's shapes beside its rivals. ``sets`` maps a name
-    to (blob, idx); the first set is the warm one. Every candidate (B3
-    itself, the library call ``x[arange(B), idx]``, the floor of B3's grid,
-    each design and games-per-block count of the bench source and, with
-    ``parent_lib``, an earlier commit's kernel at the state's own width and
-    at the padded stride) is first held word for word against the plain
-    version on every set (the floor excepted: it writes nothing), then
-    timed warm (back to back, as ``time_events``) and cold (L2 flushed, as
-    ``time_each``) on every set, in ``B3_ROUNDS`` round-robin rounds;
-    each number is the median of its rounds. Returns a dict of ms."""
+def gather_rows_timings(sets, floor_lib, games: int):
+    """B3 at the main path's shapes beside the library call
+    ``x[arange(B), idx]`` and the floor of its grid (``games`` games a
+    block, indices read, nothing written). ``sets`` maps a name to (blob,
+    idx); the first set is the warm one. B3 and the library call are first
+    held word for word against the plain version on every set; then each
+    candidate is timed warm (back to back, as ``time_events``) and cold (L2
+    flushed, as ``time_each``) on every set, in ``B3_ROUNDS`` round-robin
+    rounds; each number is the median of its rounds. Returns a dict of ms."""
     from minizero_tpu_torch.ops.gather_rows import gather_rows, gather_rows_reference
 
-    floor = bench_lib.gather_rows_floor_launch
-    floor.argtypes, floor.restype = [ctypes.c_int] + [ctypes.c_void_p] * 3, ctypes.c_int
+    floor = floor_lib.gather_rows_floor_launch
+    floor.argtypes, floor.restype = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3, ctypes.c_int
     sink = torch.empty(1, dtype=torch.int32, device="cuda")
 
     def floor_run(x, idx):
-        floor(x.shape[0], idx.data_ptr(), sink.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        rc = floor(x.shape[0], games, idx.data_ptr(), sink.data_ptr(),
+                   torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"gather_rows_floor: launch refused (cudaError {rc})")
 
     # the library call's index tensors, made once per set as a caller would
     # keep them
@@ -488,32 +456,21 @@ def gather_rows_timings(sets, state_w: int, bench_lib, parent_lib):
     def library(x, idx):
         return x[long_idx[id(idx)]]
 
-    cands = {"B3": (gather_rows, sets), "library": (library, sets), "floor": (floor_run, sets)}
-    for d, design in enumerate(B3_DESIGNS):
-        for g in B3_GAMES_PER_BLOCK:
-            cands[f"{design} G={g}"] = (
-                gather_launcher(bench_lib, "gather_rows_bench_launch", d, g), sets)
-    if parent_lib is not None:
-        run = gather_launcher(parent_lib, "gather_rows_launch",
-                              aligned_arg=hasattr(parent_lib, "gather_rows_games_per_block"))
-        bare = {k: (x[..., :state_w].contiguous(), j) for k, (x, j) in sets.items()}
-        cands[f"parent W={state_w}"] = (run, bare)
-        cands["parent W=stride"] = (run, sets)
-    for name, (run, variant) in cands.items():
-        for k, (x, j) in variant.items():
-            if name != "floor" and not torch.equal(run(x, j), gather_rows_reference(x, j)):
-                fail(f"B3 candidate {name}: rows differ from the plain version on the {k} indices")
+    cands = {"B3": gather_rows, "library": library, "floor": floor_run}
+    for name in ("B3", "library"):
+        for k, (x, j) in sets.items():
+            if not torch.equal(cands[name](x, j), gather_rows_reference(x, j)):
+                fail(f"B3 {name}: rows differ from the plain version on the {k} indices")
     samples = {name: {"warm": [], **{k: [] for k in sets}} for name in cands}
+    x0, j0 = next(iter(sets.values()))
     for _ in range(B3_ROUNDS):
-        for name, (run, variant) in cands.items():
-            x0, j0 = next(iter(variant.values()))
+        for name, run in cands.items():
             samples[name]["warm"].append(time_events(lambda i: run(x0, j0), 50))
-            for k, (x, j) in variant.items():
+            for k, (x, j) in sets.items():
                 samples[name][k].append(time_each(lambda x=x, j=j: run(x, j)))
     r = {name: {key: sorted(v)[len(v) // 2] for key, v in d.items()} for name, d in samples.items()}
-    blob, idx = next(iter(sets.values()))
-    r["B3"]["warm_each"] = time_each(lambda: gather_rows(blob, idx), flush=False)
-    r["plain"] = time_events(lambda i: gather_rows_reference(blob, idx), 20, hold=False)
+    r["B3"]["warm_each"] = time_each(lambda: gather_rows(x0, j0), flush=False)
+    r["plain"] = time_events(lambda i: gather_rows_reference(x0, j0), 20, hold=False)
     return r
 
 
@@ -840,11 +797,6 @@ def small_atari_card_vs_cpu(cfg) -> str:
 
 
 def main() -> None:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--parent", metavar="DIR", default=None,
-                        help="root of a checkout of an earlier commit whose B3 "
-                             "(minizero_tpu_torch/csrc/gather_rows.cu) is timed beside this one's")
-    args = parser.parse_args()
     sys.path.insert(0, ROOT)
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
@@ -884,21 +836,13 @@ def main() -> None:
         f"{count} device(s), using {kind}")
 
     # ---- 2. build --------------------------------------------------------------
-    kernels = ["tree_step", "tree_step_v2", "gather_rows", "gather_rows_bench"]
+    # gather_rows_floor: B3's floor, timed beside it in phase 4b'
+    kernels = ["tree_step", "tree_step_v2", "gather_rows", "gather_rows_floor"]
     t = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # the parent's source beside the others
-        own = pool.submit(_build.build, kernels)
-        parent = None if args.parent is None else pool.submit(
-            _build.build, ["gather_rows"], os.path.join(args.parent, "minizero_tpu_torch", "csrc"))
-        builds = [(res, "") for res in own.result()]
-        if parent is not None:
-            builds += [(res, f" of {args.parent}") for res in parent.result()]
-    for res, where in builds:
+    for res in _build.build(kernels):
         usage = "; ".join(re.sub(r"\s+", " ", line.split(":", 1)[1]).strip()
                           for line in res.log.splitlines() if "Used" in line)
-        log(f"phase 2 build: {res.name}.cu{where} in {res.seconds:.2f} s (ptxas: {usage or 'n/a'})")
-    bench_lib = _build.load("gather_rows_bench")
-    parent_lib = None if parent is None else ctypes.CDLL(builds[-1][0].path)
+        log(f"phase 2 build: {res.name}.cu in {res.seconds:.2f} s (ptxas: {usage or 'n/a'})")
     # registers and shared memory per block (cudaFuncGetAttributes; the
     # dynamic size is what a launch at these shapes asks for): the tree
     # steps run 128-thread blocks, B3 one warp per game
@@ -1128,12 +1072,11 @@ def main() -> None:
 
     # B3 at the gather of simulation 190: warm on the random-init move's
     # indices, cold on those and on the trained net's, beside the floor of
-    # its grid, its plain version, the library call, the bench designs and
-    # (with --parent) the parent's kernel; the bound counts the state's own
-    # words (2 * valid rows * 697 * 4 + B * 4 bytes)
+    # its grid, its plain version and the library call; the bound counts the
+    # state's own words (2 * valid rows * 697 * 4 + B * 4 bytes)
     t = time.perf_counter()
     sets = {"random-init": (az._blob, gcheck.kept_idx), "trained": (tr._blob, tr_gcheck.kept_idx)}
-    b3 = gather_rows_timings(sets, state_w, bench_lib, parent_lib)
+    b3 = gather_rows_timings(sets, _build.load("gather_rows_floor"), b3_games)
     byts3 = 2 * int((gcheck.kept_idx >= 0).sum()) * state_w * 4 + BATCH * 4
     bound3_ms = byts3 / HBM_BYTES_PER_S * 1e3
     k3_ms, p3_ms, l3_ms = b3["B3"]["warm"], b3["plain"], b3["library"]["warm"]
@@ -1148,10 +1091,6 @@ def main() -> None:
         f"warm {l3_ms:.5f} ms, cold {b3['library']['random-init']:.5f} / "
         f"{b3['library']['trained']:.5f} ms; bound {bound3_ms:.5f} ms ({byts3} bytes); in "
         f"{time.perf_counter() - t:.2f} s")
-    log("B3 candidates, ms warm / cold random-init / cold trained (median of "
-        f"{B3_ROUNDS} rounds; each equal to the plain version): " + "; ".join(
-            f"{name} {v['warm']:.5f} / {v['random-init']:.5f} / {v['trained']:.5f}"
-            for name, v in b3.items() if name not in ("B3", "library", "floor", "plain")))
 
     # 4c. Go 9x9 Gumbel MuZero: a warm-up move with every tree step beside
     # its plain version, then move_scan

@@ -11,7 +11,7 @@
 // block barrier, and the warps of skipped games and of the ragged last
 // block exit at once. Each lane then issues every load of its share of the
 // row before its first store, so a row costs one memory round trip, not one
-// per pass. Two paths, picked by the wrapper:
+// per pass. Two paths, picked by the launcher:
 //
 // - aligned: W a multiple of 4 words and both bases 16-byte aligned. Rows
 //   move as 16-byte elements, up to kVecPerLane a lane (6 cover the Go 9x9
@@ -31,14 +31,14 @@
 // the chain idx load -> row load -> store cost about as much as the bytes;
 // the design keeps that chain to one dependent step after the index.
 //
-// G = 2 and the register-staged copy were chosen on the card (chip_smoke.py
-// times every candidate on the main path's indices) against G = 4, 8, 16
-// and against a copy by Hopper's bulk asynchronous copies through shared
-// memory (gather_rows_bench.cu). G = 2, 4 and 8 came within ~1% of each
-// other warm and cold, G = 2 first or tied in most readings, G = 16 ~10%
-// slower warm; the bulk copies were slower at every G, warm and cold: a
-// 2,800-byte row is too short for the bulk engine to pay for its trip
-// through shared memory (PERF.md).
+// G = 2 and the register-staged copy were chosen on the card at the main
+// path's shapes against G = 4, 8, 16 and against a copy by Hopper's bulk
+// asynchronous copies through shared memory (one lane a game, cp.async.bulk
+// global -> shared on an mbarrier, then a bulk store). G = 2, 4 and 8 came
+// within ~1% of each other warm and cold, G = 16 ~10% slower warm; the bulk
+// copies were slower at every G, warm and cold: a 2,800-byte row is too
+// short for the bulk engine to pay for its trip through shared memory
+// (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,14 +51,14 @@ constexpr int kWordsPerLane = 24;  // int32 words a lane issues per pass
 
 // One warp per game; T is int4 (aligned path) or int32_t (generic), W is
 // the row length in elements of T.
-template <int G, typename T, int kPerLane>
-__global__ void __launch_bounds__(G * 32)
+template <typename T, int kPerLane>
+__global__ void __launch_bounds__(kGamesPerBlock * 32)
 gather_rows_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
                    T* __restrict__ out, int B, int N, int W) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b0 = blockIdx.x * G;
+  const int b0 = blockIdx.x * kGamesPerBlock;
   int mine = -1;
-  if (lane < G && b0 + lane < B) mine = idx[b0 + lane];
+  if (lane < kGamesPerBlock && b0 + lane < B) mine = idx[b0 + lane];
   const int row = __shfl_sync(0xffffffffu, mine, warp);
   if (row < 0 || row >= N) return;  // skipped game, or past the batch's end
   const int b = b0 + warp;
@@ -79,34 +79,24 @@ gather_rows_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
   }
 }
 
-bool aligned_ok(int W, const void* x, const void* out) {
-  return W % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
-}
+}  // namespace
 
-template <int G>
-int launch_games(int B, int N, int W, const void* x, const void* idx, void* out, int aligned,
-                 cudaStream_t stream) {
-  const int blocks = (B + G - 1) / G;
-  if (aligned) {
-    gather_rows_kernel<G, int4, kVecPerLane><<<blocks, G * 32, 0, stream>>>(
+// Launches the aligned path where W % 4 == 0 and x, out are 16-byte
+// aligned, else the generic path, and writes which into *aligned (1 or 0).
+extern "C" int gather_rows_launch(int B, int N, int W, const void* x, const void* idx,
+                                  void* out, void* stream, int* aligned) {
+  *aligned = W % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
+  if (B == 0 || W == 0) return 0;
+  const int blocks = (B + kGamesPerBlock - 1) / kGamesPerBlock;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (*aligned) {
+    gather_rows_kernel<int4, kVecPerLane><<<blocks, kGamesPerBlock * 32, 0, s>>>(
         (const int4*)x, (const int32_t*)idx, (int4*)out, B, N, W / 4);
   } else {
-    gather_rows_kernel<G, int32_t, kWordsPerLane><<<blocks, G * 32, 0, stream>>>(
+    gather_rows_kernel<int32_t, kWordsPerLane><<<blocks, kGamesPerBlock * 32, 0, s>>>(
         (const int32_t*)x, (const int32_t*)idx, (int32_t*)out, B, N, W);
   }
   return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// aligned != 0 asks for the 16-byte path; the call is refused
-// (cudaErrorMisalignedAddress) unless W % 4 == 0 and x, out are 16-byte
-// aligned.
-extern "C" int gather_rows_launch(int B, int N, int W, const void* x, const void* idx,
-                                  void* out, int aligned, void* stream) {
-  if (B == 0 || W == 0) return 0;
-  if (aligned && !aligned_ok(W, x, out)) return (int)cudaErrorMisalignedAddress;
-  return launch_games<kGamesPerBlock>(B, N, W, x, idx, out, aligned, (cudaStream_t)stream);
 }
 
 extern "C" int gather_rows_games_per_block() { return kGamesPerBlock; }
@@ -118,9 +108,8 @@ extern "C" int gather_rows_attributes(int aligned, int* regs, int* static_smem,
                                       int* dynamic_smem) {
   cudaFuncAttributes attr;
   const cudaError_t err =
-      aligned ? cudaFuncGetAttributes(&attr, gather_rows_kernel<kGamesPerBlock, int4, kVecPerLane>)
-              : cudaFuncGetAttributes(&attr,
-                                      gather_rows_kernel<kGamesPerBlock, int32_t, kWordsPerLane>);
+      aligned ? cudaFuncGetAttributes(&attr, gather_rows_kernel<int4, kVecPerLane>)
+              : cudaFuncGetAttributes(&attr, gather_rows_kernel<int32_t, kWordsPerLane>);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *static_smem = (int)attr.sharedSizeBytes;

@@ -2,10 +2,9 @@
 with a plain C interface, loaded with ``ctypes``.
 
 Sources live in ``minizero_tpu_torch/csrc/``; each ``<name>.cu`` becomes
-``minizero_tpu_torch/_build/<name>-<hash>.so``, keyed by a hash of the
-source, the sources it includes by ``#include "..."`` and the flags, at
-first use. ``nvcc`` is looked up in ``$CUDA_HOME/bin``, then
-``/usr/local/cuda/bin``, then ``PATH``. Nothing here runs at import.
+``minizero_tpu_torch/_build/<name>-<hash>.so``, keyed by a hash of the source
+and the flags, at first use. ``nvcc`` is looked up in ``$CUDA_HOME/bin``,
+then ``/usr/local/cuda/bin``, then ``PATH``. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -13,7 +12,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import time
@@ -56,37 +54,26 @@ def find_nvcc() -> str:
         "the CUDA kernels of minizero_tpu_torch need the CUDA toolkit")
 
 
-def _source_bytes(path: str) -> bytes:
-    """The source and, recursively, every source it includes by
-    ``#include "..."`` from its own directory."""
-    with open(path, "rb") as f:
-        text = f.read()
-    parts = [text]
-    for inc in re.findall(rb'^#include "([^"]+)"', text, flags=re.M):
-        parts.append(_source_bytes(os.path.join(os.path.dirname(path), inc.decode())))
-    return b"\0".join(parts)
+def _target(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
 
-def _target(name: str, csrc: str) -> str:
-    blob = _source_bytes(os.path.join(csrc, f"{name}.cu")) + " ".join(NVCC_FLAGS).encode()
-    return os.path.join(BUILD_DIR, f"{name}-{hashlib.sha256(blob).hexdigest()[:16]}.so")
-
-
-def build(names: Sequence[str], csrc: str = CSRC) -> List[BuildResult]:
-    """Compile every named source of ``csrc`` (the package's own by
-    default) that is not built yet, all ``nvcc`` processes started
-    together. Raises ``RuntimeError`` with the compiler's output when one
-    fails."""
+def build(names: Sequence[str]) -> List[BuildResult]:
+    """Compile every named source that is not built yet, all ``nvcc``
+    processes started together. Raises ``RuntimeError`` with the compiler's
+    output when one fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     results: Dict[str, BuildResult] = {}
     running = []
     for name in names:
-        out = _target(name, csrc)
+        out = _target(name)
         if os.path.exists(out):
             results[name] = BuildResult(name, out, 0.0, "")
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(csrc, f"{name}.cu")]
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((name, out, tmp, proc, time.perf_counter()))
     failures = []

@@ -8,7 +8,8 @@ tensors and calls ``gather_rows_reference``, its plain PyTorch version, on
 CPU tensors. Any ``B``, ``N`` and ``W`` are taken. The kernel copies rows
 in 16-byte elements where ``W`` is a multiple of 4 words and both bases are
 16-byte aligned (the aligned path, which the engine's padded blob takes),
-else in 4-byte words (the generic path); the wrapper decides.
+else in 4-byte words (the generic path); the kernel's C launcher decides
+and reports which path it took.
 
 A game whose index lies outside ``[0, N)`` (the engine passes -1 for "skip")
 gets no row: the kernel leaves that output row undefined and the plain
@@ -37,7 +38,7 @@ def _library():
 
     fn = _build.load("gather_rows").gather_rows_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     return fn
 
@@ -62,13 +63,13 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError("gather_rows: x and idx must be contiguous")
     b, n, w = x.shape
     out = torch.empty((b, w), dtype=torch.int32, device=x.device)
-    aligned = w % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    rc = _library()(b, n, w, x.data_ptr(), idx.data_ptr(), out.data_ptr(), int(aligned),
-                    torch.cuda.current_stream(x.device).cuda_stream)
+    aligned = ctypes.c_int()
+    rc = _library()(b, n, w, x.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                    torch.cuda.current_stream(x.device).cuda_stream, ctypes.byref(aligned))
     if rc != 0:
         raise RuntimeError(f"gather_rows: CUDA kernel launch failed (cudaError {rc})")
     gather_rows.launches += 1
-    gather_rows.launches_aligned += int(aligned)
+    gather_rows.launches_aligned += aligned.value
     return out
 
 
