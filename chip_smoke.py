@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 Drives the port's self-play and search paths (``minizero_tpu_torch``) at
-full width, with 1 x 256 nets made from a seed and bf16 inference, and holds
-every CUDA kernel of them against its plain PyTorch version on the card:
+full width, with 1 x 256 nets made from a seed and bf16 inference, then one
+whole zero iteration (self-play, records, replay, SGD, checkpoint) of the
+flagship and of Gumbel MuZero, and holds every CUDA kernel of them against
+its plain PyTorch version on the card:
 
 - the flagship Go 9x9 Gumbel AlphaZero path, n=16, 1024 games (tree step
   B1, ``csrc/tree_step.cu``, board regime);
@@ -35,7 +37,18 @@ Phases:
      net's move, beside the floor of its grid (``csrc/gather_rows_floor.cu``,
      a kernel that reads the indices only);
   5. where the device time goes: one move or search of each path under
-     ``torch.profiler``; B3's time in a move per launch.
+     ``torch.profiler``; B3's time in a move per launch;
+  6. one zero iteration of the flagship through ``zero.loop.ZeroLoop.run``
+     (gaz n=16, 1 x 256, 1024 games in lock-step, 500 SGD steps at batch
+     1024, from a seeded random init): B1 beside its plain version on the
+     first ``move_scan`` chunk, launch counts over the iteration, the
+     records parsed back, the logs, a checkpoint reloaded into a fresh
+     loop; games/s, env-steps/s, the ``[SelfPlay Timing]`` split, SGD ms
+     per step (CUDA events, steps 11-500), checkpoint size and times, peak
+     device memory; 6b the same for Gumbel MuZero (K=5); 6c the train step
+     on the card against the CPU (TF32 off) and a fixed full-width batch
+     whose loss falls; 6d the native record codec against the plain
+     writer on 64 of the iteration's games.
 
 Prints one progress line per phase, then a JSON line of kernel numbers, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -83,6 +96,16 @@ FLUSH_BYTES = 128 << 20
 TRAINED_NPZ = os.path.join("minizero_tpu_torch", "assets", "go9_az200_r3b_iter25000.npz")
 TRAINED_WARM_MOVES = 8
 FLOAT_ATOL = 1e-5
+# phase 6: one zero iteration at the flagship's widths (the one cut: 1024
+# games, one a slot, where the reference recipe plays 2000); SGD timed by
+# CUDA events over steps SGD_TIMED_FROM..ZERO_STEPS; the train step on the
+# card against the CPU within TRAIN_ATOL (TF32 off)
+ZERO_GAMES = 1024
+ZERO_BATCH = 1024
+ZERO_STEPS = 500
+SGD_TIMED_FROM = 11
+CODEC_GAMES = 64
+TRAIN_ATOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -796,6 +819,313 @@ def small_atari_card_vs_cpu(cfg) -> str:
             f"|root value| up to {float(cm.abs().max()):.3g}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6 helpers: a zero iteration through ZeroLoop, the train step on the
+# card against the CPU, the record codec against its plain version
+# ---------------------------------------------------------------------------
+
+class StepTimer:
+    """Wraps a loop's train step: a CUDA event before step ``first`` (1 is
+    the first step) and one after step ``last``, so that ms per step comes
+    from the card's clock over steps first..last."""
+
+    def __init__(self, fn, first: int, last: int):
+        self.fn, self.first, self.last = fn, first, last
+        self.calls = 0
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.end = torch.cuda.Event(enable_timing=True)
+
+    def __call__(self, *args, **kwargs):
+        if self.calls + 1 == self.first:
+            self.start.record()
+        out = self.fn(*args, **kwargs)
+        self.calls += 1
+        if self.calls == self.last:
+            self.end.record()
+        return out
+
+    def ms_per_step(self) -> float:
+        return self.start.elapsed_time(self.end) / (self.last - self.first + 1)
+
+
+def same_tensors(a, b) -> bool:
+    """Nested dicts and lists of tensors and plain values, equal exactly."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b.to(a.device))
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(same_tensors(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tensors(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int = 0) -> dict:
+    """One iteration of the zero loop at the flagship's widths: ``ZeroLoop``
+    on the card (``algorithm_preset(algo)``, Go 9x9, 1 x 256, 1024 games in
+    lock-step, 500 SGD steps at batch 1024), ``run()`` from a seeded random
+    init in a temporary run directory. The first ``move_scan`` chunk runs
+    every tree step beside its plain version; every launch counter is 0
+    just before ``run()`` and read just after. Checks the records, the step
+    count, the logs, and a checkpoint reload into a fresh loop; with
+    ``codec_games``, the native codec against the plain writer on that many
+    of the iteration's games. Returns the numbers."""
+    import tempfile
+
+    from minizero_tpu_torch import native
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
+    from minizero_tpu_torch.selfplay.record import game_record_from_string, parse_game, serialize_game
+    from minizero_tpu_torch.zero.loop import ZeroLoop
+
+    over = dict(algorithm_preset(algo))
+    over.update(zero_num_parallel_games=BATCH, zero_num_games_per_iteration=ZERO_GAMES,
+                learner_batch_size=ZERO_BATCH, learner_training_step=ZERO_STEPS,
+                zero_end_iteration=1, program_seed=seed)
+    cfg = default_config("go", **over)
+    what = f"zero iteration ({algo})"
+    out = {}
+    with tempfile.TemporaryDirectory(prefix=f"zero_{algo}_") as run_dir:
+        loop = ZeroLoop(cfg, run_dir)
+        engine = loop.engine
+        if engine.network is not loop.network or loop.device.type != "cuda":
+            fail(f"{what}: the engine does not play the trained module on the card")
+        n = engine.spec.num_simulations
+        check = TreeStepCheck(keep_sim=n // 2)
+        scan = engine.move_scan
+
+        def first_chunk_checked(*args, **kwargs):
+            del engine.move_scan  # later chunks take the method itself
+            engine.tree_step = check
+            try:
+                return scan(*args, **kwargs)
+            finally:
+                engine.tree_step = fused_tree_step
+
+        engine.move_scan = first_chunk_checked
+        timer = StepTimer(loop._train_step, SGD_TIMED_FROM, ZERO_STEPS)
+        loop._train_step = timer
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t = time.perf_counter()
+        loop.run()
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t
+        launches = counts()
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        timing = dict(loop.last_selfplay_timing)
+        moves = timing["chunks"] * timing["moves_per_chunk"]
+        if check.calls != cfg.zero_moves_per_dispatch * (n + 1) or check.reward_calls:
+            fail(f"{what}: {check.calls} tree steps checked in the first chunk "
+                 f"({check.reward_calls} in the reward regime)")
+        want = {"tree_step": moves * (n + 1), "tree_step_rewards": 0, "tree_step_v2": 0,
+                "gather_rows": 0, "gather_rows_aligned": 0}
+        if launches != want:
+            fail(f"{what}: launches {launches}, expected {want} ({moves} moves)")
+        (row,) = [json.loads(x) for x in open(os.path.join(run_dir, "perf.jsonl"))]
+        # records: exactly the target, each parsed back to the actions the
+        # replay buffer holds
+        lines = open(os.path.join(run_dir, "sgf", "1.sgf")).read().splitlines()
+        if len(lines) != ZERO_GAMES or len(loop.buffer) != ZERO_GAMES:
+            fail(f"{what}: {len(lines)} record lines, {len(loop.buffer)} games in the buffer, "
+                 f"expected {ZERO_GAMES}")
+        a_size = loop.env.spec.action_size
+        for i, (line, rec) in enumerate(zip(lines, loop.buffer.games)):
+            if not np.array_equal(game_record_from_string(line, a_size)[1].actions, rec.actions):
+                fail(f"{what}: record line {i} does not parse back to its game's actions")
+        if loop.state.step != ZERO_STEPS or timer.calls != ZERO_STEPS:
+            fail(f"{what}: step counter {loop.state.step}, {timer.calls} train steps")
+        op = open(os.path.join(run_dir, "op.log")).read().splitlines()
+        logged = [{k: float(v) for k, v in re.findall(r"(\w+): (\S+)", ln.split(" lr: ")[-1])}
+                  for ln in op]
+        if len(op) != ZERO_STEPS // cfg.learner_training_display_step or not all(
+                "loss" in d for d in logged):
+            fail(f"{what}: {len(op)} op.log lines, or one without its loss")
+        losses = [v for d in logged for k, v in d.items() if k.startswith("loss")]
+        if not all(np.isfinite(losses)):
+            fail(f"{what}: a logged loss is not finite: {op}")
+        train_log = open(os.path.join(run_dir, "Training.log")).read()
+        for needle in ("[SelfPlay Timing] chunks:", f"Optimization_Done {ZERO_STEPS}",
+                       "[Iteration] 1: self-play"):
+            if needle not in train_log:
+                fail(f"{what}: Training.log has no {needle!r} line")
+        # the checkpoint, saved again to time it, into a fresh loop
+        t = time.perf_counter()
+        path = loop.save_checkpoint()
+        out["save_s"] = time.perf_counter() - t
+        out["ckpt_mib"] = os.path.getsize(path) / 2**20
+        fresh = ZeroLoop(cfg, run_dir)
+        t = time.perf_counter()
+        fresh.load_checkpoint(path)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t
+        if not (fresh.state.step == ZERO_STEPS
+                and same_tensors(loop.network.state_dict(), fresh.network.state_dict())
+                and same_tensors(loop.state.optimizer.state_dict(),
+                                 fresh.state.optimizer.state_dict())):
+            fail(f"{what}: the reloaded checkpoint differs from the loop's state")
+        # one more SGD step of the loop under the profiler, on a fresh
+        # sample of its replay buffer (the loop's own sampling and upload)
+        from minizero_tpu_torch.zero.loop import _to_device
+
+        def one_step():
+            sample = (loop.buffer.sample_muzero if loop.is_muzero else loop.buffer.sample_alphazero)
+            b = sample(ZERO_BATCH, loop.np_rng)
+            b.pop("sampled_index")
+            timer.fn(loop.state, _to_device(b, loop.device), loop.generator)
+
+        out["profile"], _ = profile_run(one_step, timer.ms_per_step(), what="SGD step")
+        if codec_games:
+            # 6d: the native codec and the plain writer give the line the
+            # loop wrote, for the first games of the iteration
+            if native.load() is None:
+                fail(f"the native record codec did not load: {native.load_error()}")
+            spec = loop.env.spec
+            t_native = t_plain = 0.0
+            for i in range(codec_games):
+                players = tuple(1 if m["player"] == "B" else 2
+                                for m in parse_game(lines[i], a_size)[1])
+                args = (spec.name, loop.buffer.games[i], spec.board_size, players)
+                t = time.perf_counter()
+                got = serialize_game(*args, model_file="weight_iter_0")
+                t_native += time.perf_counter() - t
+                t = time.perf_counter()
+                plain = serialize_game(*args, model_file="weight_iter_0", plain=True)
+                t_plain += time.perf_counter() - t
+                if not got == plain == lines[i]:
+                    fail(f"codec: game {i}: the native and the plain record strings differ")
+            out["codec"] = (codec_games, t_native, t_plain, sum(len(x) for x in lines[:codec_games]))
+        out.update(
+            games=ZERO_GAMES, moves=moves, launches=launches["tree_step"], checked=check.calls,
+            check_err=check.max_abs_err, selfplay_s=row["selfplay_s"],
+            optimize_s=row["optimize_s"], timing=timing,
+            ms_per_step=timer.ms_per_step(), lengths=[r.length for r in loop.buffer.games],
+            first_loss=logged[0]["loss"], last_loss=logged[-1]["loss"],
+            record_mib=os.path.getsize(os.path.join(run_dir, "sgf", "1.sgf")) / 2**20)
+        loop.close()
+        fresh.close()
+        del loop, fresh, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_line(z: dict) -> str:
+    t = z["timing"]
+    env_steps = z["moves"] * BATCH
+    lengths = np.asarray(z["lengths"])
+    return (f"{z['games']} games in {z['selfplay_s']:.2f} s ({z['games'] / z['selfplay_s']:.1f} "
+            f"games/s, {env_steps / z['selfplay_s']:.1f} env-steps/s over {z['moves']} moves x "
+            f"{BATCH} slots; game length {lengths.min()}-{lengths.max()}, mean "
+            f"{lengths.mean():.1f}); [SelfPlay Timing] chunks {t['chunks']} x "
+            f"{t['moves_per_chunk']} moves, dispatch {t['dispatch_s']:.2f} s, collect "
+            f"{t['collect_s']:.2f} s, records {t['records_s']:.2f} s; B1 launches {z['launches']} "
+            f"(= {z['moves']} moves x 17), {z['checked']} of them beside the plain version "
+            f"(max |diff| {z['check_err']:.3g}); optimize {ZERO_STEPS} steps at batch "
+            f"{ZERO_BATCH} in {z['optimize_s']:.2f} s wall, {z['ms_per_step']:.3f} ms/step = "
+            f"{1e3 / z['ms_per_step']:.1f} SGD steps/s by CUDA events over steps "
+            f"{SGD_TIMED_FROM}-{ZERO_STEPS}; loss {z['first_loss']:.4f} (first op.log line) -> "
+            f"{z['last_loss']:.4f} (last); records {z['record_mib']:.1f} MiB; checkpoint "
+            f"{z['ckpt_mib']:.2f} MiB, save {z['save_s']:.3f} s, load {z['load_s']:.3f} s; "
+            f"iteration wall {z['wall_s']:.2f} s; peak device memory {z['peak_gib']:.2f} GiB; "
+            f"one profiled SGD step: {z['profile']}")
+
+
+def _random_train_batch(rng, spec, cfg, b: int) -> dict:
+    """A replay-shaped batch: bit-packed 0/1 planes, f16 policies, values in
+    {-1, 0, 1}; MuZero's K unroll actions and targets."""
+    from minizero_tpu_torch.utils.bitpack import pack_planes
+
+    planes = rng.random((b, spec.input_height, spec.input_width, spec.num_input_channels)) > 0.5
+    k, a = cfg.learner_muzero_unrolling_step, spec.action_size
+
+    def policy(shape):
+        p = rng.random(shape) * (rng.random(shape) > 0.3) + 1e-3
+        return (p / p.sum(-1, keepdims=True)).astype(np.float16)
+
+    batch = {"features": pack_planes(torch.from_numpy(planes)).numpy(),
+             "loss_scale": np.ones(b, np.float32)}
+    if cfg.nn_type_name == "muzero":
+        batch.update(policy=policy((b, k + 1, a)),
+                     value=rng.choice([-1.0, 0.0, 1.0], (b, k + 1)).astype(np.float32),
+                     actions=rng.integers(0, a, (b, k)).astype(np.int32),
+                     reward=np.zeros((b, k), np.float32))
+    else:
+        batch.update(policy=policy((b, a)),
+                     value=rng.choice([-1.0, 0.0, 1.0], b).astype(np.float32))
+    return batch
+
+
+def train_step_card_vs_cpu(algo: str, seed: int) -> str:
+    """The train step on the card and on the CPU (TF32 off): Go 9x9, 1 x 32,
+    batch 64, 3 SGD steps, each from the same weights, running statistics,
+    momentum and rotation ids. The metrics, parameters and running
+    statistics agree within TRAIN_ATOL: the card sums the convolutions in
+    another order, and a ReLU input within float noise of 0 can land on
+    either side of its kink (seen once in a K=5 unroll at batch 64: a raw
+    gradient 2% apart, the parameters 1.1e-5 apart after the step); the
+    state carried over each step keeps such a flip from compounding. The
+    momentum, one step's raw gradient, is not compared."""
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.learner.train import init_train_state, make_train_step
+    from minizero_tpu_torch.models.factory import create_network, init_network
+
+    over = dict(algorithm_preset(algo))
+    over.update(nn_num_hidden_channels=32, nn_num_value_hidden_channels=32, learner_batch_size=64)
+    cfg = default_config("go", **over)
+    env = make_env(cfg)
+    cpu_net = init_network(create_network(cfg, env.spec), seed=seed)
+    card_net = copy.deepcopy(cpu_net).cuda()
+    cpu_state, card_state = init_train_state(cfg, cpu_net), init_train_state(cfg, card_net)
+    cpu_step, card_step = make_train_step(cfg, env, cpu_net), make_train_step(cfg, env, card_net)
+    rng = np.random.default_rng(seed)
+    loss_err = state_err = 0.0
+    for s in range(3):
+        card_net.load_state_dict(cpu_net.state_dict())
+        card_state.optimizer.load_state_dict(copy.deepcopy(cpu_state.optimizer.state_dict()))
+        card_state.step = cpu_state.step
+        batch = _random_train_batch(rng, env.spec, cfg, 64)
+        rots = torch.from_numpy(rng.integers(0, 8, 64))
+        m_cpu = cpu_step(cpu_state, batch, rotations=rots)
+        m_card = card_step(card_state, batch, rotations=rots.cuda())
+        for k in m_cpu:
+            loss_err = max(loss_err, float((m_card[k].cpu() - m_cpu[k]).abs().max()))
+        sd_cpu, sd_card = cpu_net.state_dict(), card_net.state_dict()
+        for k in sd_cpu:
+            if sd_cpu[k].is_floating_point():
+                state_err = max(state_err, float((sd_card[k].cpu() - sd_cpu[k]).abs().max()))
+        if not (loss_err <= TRAIN_ATOL and state_err <= TRAIN_ATOL):
+            fail(f"train step ({algo}) step {s}: card and CPU differ: metrics {loss_err}, "
+                 f"state {state_err} (tol {TRAIN_ATOL})")
+        if card_net.training or cpu_net.training:
+            fail(f"train step ({algo}): the net was left in train mode")
+    return (f"3 steps equal: metrics max |diff| {loss_err:.3g}, parameters and running "
+            f"statistics max |diff| {state_err:.3g} (tol {TRAIN_ATOL})")
+
+
+def fixed_batch_loss_falls(algo: str, seed: int) -> str:
+    """30 SGD steps of the full-width net (1 x 256) on one fixed batch of
+    1024 with fixed rotation ids lower its loss (``tests/test_train.py``'s
+    learning check, on the card)."""
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.learner.train import init_train_state, make_train_step
+    from minizero_tpu_torch.models.factory import create_network, init_network
+
+    cfg = default_config("go", **algorithm_preset(algo))
+    env = make_env(cfg)
+    net = init_network(create_network(cfg, env.spec), seed=seed).cuda()
+    state, step = init_train_state(cfg, net), make_train_step(cfg, env, net)
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _random_train_batch(rng, env.spec, cfg, ZERO_BATCH).items()}
+    rots = torch.from_numpy(rng.integers(0, 8, ZERO_BATCH)).cuda()
+    losses = [float(step(state, batch, rotations=rots)["loss"]) for _ in range(30)]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"train step ({algo}): 30 steps on a fixed batch did not lower its loss: {losses}")
+    return f"loss {losses[0]:.4f} -> {losses[-1]:.4f} over 30 steps"
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     if not torch.cuda.is_available():
@@ -1182,6 +1512,33 @@ def main() -> None:
                               at_ms_per_search, ("tree_step_kernel",), what="search")
     log(f"phase 5 one profiled Atari search: {line}")
 
+    # ---- 6. the zero iteration: self-play, records, replay, SGD, checkpoint --
+    # the timed training runs with PyTorch's defaults: cuDNN convolutions in
+    # TF32, matrix products in float32 (self-play is bf16 either way)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t = time.perf_counter()
+    gaz_zero = zero_iteration("gaz", 11, zero_counts, counts, codec_games=CODEC_GAMES)
+    log(f"phase 6 zero iteration (gaz n=16, 1x256, B={BATCH}; TF32 convolutions): "
+        f"{zero_line(gaz_zero)}; phase in {time.perf_counter() - t:.2f} s")
+    n_codec, t_native, t_plain, codec_bytes = gaz_zero["codec"]
+    log(f"phase 6d codec: native library loaded; {n_codec} games ({codec_bytes} bytes of "
+        f"records) equal to the plain writer's and to the loop's lines; native "
+        f"{1e3 * t_native:.1f} ms, plain {1e3 * t_plain:.1f} ms")
+    t = time.perf_counter()
+    gmz_zero = zero_iteration("gmz", 12, zero_counts, counts)
+    log(f"phase 6b zero iteration (gmz n=16, K=5, 1x256, B={BATCH}; TF32 convolutions): "
+        f"{zero_line(gmz_zero)}; phase in {time.perf_counter() - t:.2f} s")
+
+    # 6c. the train step on the card against the CPU, TF32 off
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    for algo in ("gaz", "gmz"):
+        msg = train_step_card_vs_cpu(algo, 13)
+        log(f"phase 6c train step card vs CPU ({algo}, Go 9x9 1x32, batch 64, f32): {msg}; "
+            f"full width (1x256, batch {ZERO_BATCH}): {fixed_batch_loss_falls(algo, 14)}")
+    log(f"phase 6c done in {time.perf_counter() - t:.2f} s")
+
     result = {"kernels": [{
         "name": "tree_step",
         "route": "cuda",
@@ -1233,7 +1590,13 @@ def main() -> None:
     }], "env_steps_per_s": steps_per_s, "ms_per_move": 1e3 * elapsed / SCAN_MOVES,
         "az200_env_steps_per_s": az_steps_per_s, "az200_ms_per_move": az_ms_per_move,
         "gmz_env_steps_per_s": mz_steps_per_s, "gmz_ms_per_move": mz_ms_per_move,
-        "atari_mz50_ms_per_search": at_ms_per_search}
+        "atari_mz50_ms_per_search": at_ms_per_search,
+        **{f"zero_{algo}_{key}": val for algo, z in (("gaz", gaz_zero), ("gmz", gmz_zero))
+           for key, val in (("sgd_steps_per_s", 1e3 / z["ms_per_step"]),
+                            ("ms_per_sgd_step", z["ms_per_step"]),
+                            ("selfplay_games_per_s", z["games"] / z["selfplay_s"]),
+                            ("selfplay_s", z["selfplay_s"]), ("optimize_s", z["optimize_s"]),
+                            ("b1_launches", z["launches"]))}}
     print(json.dumps(result), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

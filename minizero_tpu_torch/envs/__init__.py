@@ -2,8 +2,8 @@
 
 ``env_defaults`` keeps the per-env config defaults of every game family, so
 ``config.default_config`` gives the same configs as the JAX package. Of the
-envs themselves only Go is ported; ``make_env`` raises ``NotImplementedError``
-for the others (ROADMAP.md, queue A, lists them).
+envs themselves Go and TicTacToe are ported; ``make_env`` raises
+``NotImplementedError`` for the others (ROADMAP.md, queue A, lists them).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from minizero_tpu_torch.envs.base import Env
 # module None = not ported yet
 _TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]] = {
     "tictactoe": (
-        None,
+        "minizero_tpu_torch.envs.tictactoe",
         "TicTacToeEnv",
         lambda cfg: {},
         {"env_board_size": 3, "actor_dirichlet_noise_alpha": 0.11},

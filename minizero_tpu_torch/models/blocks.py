@@ -4,7 +4,8 @@ reference ``minizero/network/py/network_unit.py``).
 ResidualBlock (2x conv3x3 + BN), PolicyHead (1x1 conv -> FC logits),
 ValueHead (1x1 conv -> FC -> tanh), DiscreteValueHead (bin logits). Layers
 keep torch's default initialisation, which the JAX package copies
-(``blocks.py:21-53``). BatchNorm: eps 1e-5, momentum 0.1 (flax's 0.9).
+(``blocks.py:21-53``). BatchNorm: eps 1e-5, momentum 0.1 (flax's 0.9), with
+flax's running-variance update in training (``BatchNorm2d`` below).
 
 The heads flatten NCHW, as the reference does. The JAX package flattens
 NHWC, so ``weights.from_jax_variables`` permutes the input rows of the first
@@ -20,8 +21,31 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training step updates the running variance
+    with the BIASED batch variance, as flax's ``BatchNorm`` does; torch's
+    own update takes the unbiased one. The forward is torch's in both
+    modes, and eval mode is untouched.
+
+    torch leaves ``v' = (1 - m) v + m * var_u`` with ``var_u = var_b * n /
+    (n - 1)`` (n values per channel); the wanted ``(1 - m) v + m * var_b``
+    is ``v' (n - 1) / n + (1 - m) v / n``, two small per-channel ops after
+    the fused kernel instead of a second pass over the activations."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        old_var = self.running_var.clone()
+        y = super().forward(x)
+        n = x.numel() // x.shape[1]
+        # a new tensor, not an in-place update: autograd saved this one
+        with torch.no_grad():
+            self.running_var = self.running_var * ((n - 1) / n) + old_var * ((1.0 - self.momentum) / n)
+        return y
+
+
 def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 class ResidualBlock(nn.Module):
@@ -91,12 +115,53 @@ class DiscreteValueHead(nn.Module):
         return self.fc2(x)
 
 
+class _MinMaxNormalize(torch.autograd.Function):
+    """Per-row ``(x - min) / guarded(max - min)`` over ``[B, K]`` with the JAX
+    package's backward (``minizero_tpu/models/blocks.py:130-174``): the
+    gradient of the min and the max goes to the single arg-min and arg-max
+    index (the first one on ties, as torch's and jax's argmin pick), not
+    spread over the ties as torch's own ``amin``/``amax`` backward does."""
+
+    @staticmethod
+    def forward(ctx, flat: torch.Tensor) -> torch.Tensor:
+        amin = flat.argmin(-1, keepdim=True)
+        amax = flat.argmax(-1, keepdim=True)
+        mn = flat.gather(-1, amin)
+        s = flat.gather(-1, amax) - mn
+        s = torch.where(s < 1e-5, s + 1e-5, s)
+        y = (flat - mn) / s
+        ctx.save_for_backward(y, s, amin, amax)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy: torch.Tensor):
+        y, s, amin, amax = ctx.saved_tensors
+        # y = (x - mn)/s with mn = x[amin], s = x[amax] - x[amin]:
+        #   dx = dy/s - e_min sum(dy)/s - (e_max - e_min) sum(dy y)/s
+        gsum = gy.sum(-1, keepdim=True)
+        gysum = (gy * y).sum(-1, keepdim=True)
+        e_min = torch.zeros_like(gy).scatter_(-1, amin, 1.0)
+        e_max = torch.zeros_like(gy).scatter_(-1, amax, 1.0)
+        return (gy - e_min * gsum - (e_max - e_min) * gysum) / s
+
+
+def minmax_normalize(flat: torch.Tensor) -> torch.Tensor:
+    """``[B, K]`` rows min-max scaled to [0, 1] (range widened by 1e-5 where
+    it is below 1e-5), differentiable with the JAX package's backward."""
+    return _MinMaxNormalize.apply(flat)
+
+
 def scale_hidden_state(hidden_state: torch.Tensor) -> torch.Tensor:
-    """Min-max scale each sample's hidden state to [0, 1], with the range
-    widened by 1e-5 where it is below 1e-5 (reference
-    ``muzero_network.py:154-164``; JAX ``blocks.py:131-182``). Forward only:
-    the JAX package's arg-index min/max backward belongs with the trainer,
-    which is not ported yet (ROADMAP.md)."""
+    """Min-max scale each sample's NCHW hidden state to [0, 1], with the
+    range widened by 1e-5 where it is below 1e-5 (reference
+    ``muzero_network.py:154-164``; JAX ``blocks.py:131-182``). Where a
+    gradient is wanted the rows are taken in the JAX package's NHWC order,
+    so that the arg-min and arg-max of a tie are the same element as there
+    (``minmax_normalize``); inference takes the plain min and max."""
+    if torch.is_grad_enabled() and hidden_state.requires_grad:
+        nhwc = hidden_state.permute(0, 2, 3, 1)
+        y = minmax_normalize(nhwc.reshape(hidden_state.shape[0], -1))
+        return y.reshape(nhwc.shape).permute(0, 3, 1, 2)
     flat = hidden_state.reshape(hidden_state.shape[0], -1)
     mn = flat.amin(-1, keepdim=True)
     mx = flat.amax(-1, keepdim=True)

@@ -3,7 +3,8 @@
 The same 8 rotations as the reference's ``minizero/utils/rotation.h``
 (identity, 90/180/270, and their horizontal mirrors) as static numpy
 permutation tables; the batched torch helpers apply one rotation per game
-with a gather.
+with a gather (features, policies read back, and the trainer's rotated
+policy targets and MuZero unroll actions).
 """
 
 from __future__ import annotations
@@ -71,6 +72,27 @@ def action_rotation_table(board_size: int, action_size: int) -> np.ndarray:
     return table
 
 
+@functools.lru_cache(maxsize=None)
+def _device_table(kind: str, board_size: int, action_size: int, device: str) -> torch.Tensor:
+    """The int64 permutation table of ``kind`` on ``device``, uploaded once
+    per process: an upload on every call would wait for the device's queue
+    to drain. Callers only read it.
+
+    - "planes": ``[8, H*W]``, the feature gather ``table[rev(r)]``;
+    - "actions": ``[8, A]``, ``table[r, a]`` = rotated action;
+    - "labels": ``[8, A]``, the policy-label gather ``table[rev(r)]``."""
+    if kind == "planes":
+        nn = board_size * board_size
+        table = position_rotation_table(board_size)[:, :nn][REVERSED_ROTATION]
+    elif kind == "actions":
+        table = action_rotation_table(board_size, action_size)
+    elif kind == "labels":
+        table = action_rotation_table(board_size, action_size)[REVERSED_ROTATION]
+    else:
+        raise ValueError(f"unknown table {kind!r}")
+    return torch.as_tensor(table, dtype=torch.long, device=device)
+
+
 def rotate_planes_batch(planes: torch.Tensor, rotations: torch.Tensor,
                         board_size: int) -> torch.Tensor:
     """Rotate ``[B, H, W, C]`` planes, game ``b`` by ``rotations[b]``.
@@ -79,8 +101,7 @@ def rotate_planes_batch(planes: torch.Tensor, rotations: torch.Tensor,
     reference feature rotation convention (``tictactoe.cpp:75``: read the
     board at the reversed rotation of the position)."""
     nn = board_size * board_size
-    table = position_rotation_table(board_size)[:, :nn][REVERSED_ROTATION]
-    perm = torch.as_tensor(table, dtype=torch.long, device=planes.device)[rotations.long()]
+    perm = _device_table("planes", board_size, 0, str(planes.device))[rotations.long()]
     b, h, w, c = planes.shape
     flat = planes.reshape(b, nn, c)
     return torch.gather(flat, 1, perm[:, :, None].expand(b, nn, c)).reshape(planes.shape)
@@ -91,6 +112,25 @@ def rotate_action_array_batch(values: torch.Tensor, rotations: torch.Tensor,
     """``out[b, a] = values[b, rotate_{rotations[b]}(a)]`` over ``[B, A]`` —
     reads a policy produced from rotated features back in original
     coordinates (reference ``zero_actor.cpp:222-223``)."""
-    table = action_rotation_table(board_size, values.shape[-1])
-    perm = torch.as_tensor(table, dtype=torch.long, device=values.device)[rotations.long()]
-    return torch.gather(values, 1, perm)
+    table = _device_table("actions", board_size, values.shape[-1], str(values.device))
+    return torch.gather(values, 1, table[rotations.long()])
+
+
+def rotate_policy_labels_batch(policy: torch.Tensor, rotations: torch.Tensor,
+                               board_size: int) -> torch.Tensor:
+    """Rotate policy targets with their features: ``out[b, ..., rot(a)] =
+    policy[b, ..., a]``, i.e. a gather through ``table[rev(r)]`` (the
+    trainer's augmentation, JAX ``learner/train.py:109-136``). ``policy`` is
+    ``[B, A]`` or ``[B, K + 1, A]``."""
+    a = policy.shape[-1]
+    perm = _device_table("labels", board_size, a, str(policy.device))[rotations.long()]
+    perm = perm.reshape((perm.shape[0],) + (1,) * (policy.dim() - 2) + (a,))
+    return torch.gather(policy, -1, perm.expand(policy.shape))
+
+
+def rotate_actions_batch(actions: torch.Tensor, rotations: torch.Tensor,
+                         board_size: int, action_size: int) -> torch.Tensor:
+    """``out[b, k] = table[rotations[b], actions[b, k]]``: MuZero's unroll
+    actions in the rotated frame (``[B, K]`` ids)."""
+    table = _device_table("actions", board_size, action_size, str(actions.device))
+    return table[rotations.long()[:, None], actions.long()].to(actions.dtype)

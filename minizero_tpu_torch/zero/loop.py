@@ -1,0 +1,405 @@
+"""Zero training loop on one device (port of ``minizero_tpu/zero/loop.py``,
+its single-process, device-env path).
+
+The reference's distributed triangle — TCP ``ZeroServer`` state machine,
+self-play workers, optimization worker, NFS
+(``minizero/zero/zero_server.cpp:159-323``) — is one in-process loop on one
+card, with the same iteration semantics:
+
+    for iteration: self-play 2000 games -> train 500 steps -> checkpoint
+
+per-game resign disabling, the temperature decay schedule (1 / 0.5 / 0.25 at
+50% / 75% of total iterations, ``zero_server.cpp:301-323``), PER beta
+annealing, a replay window of ``zero_replay_buffer`` iterations, one record
+file per iteration, and ``Training.log`` / ``op.log`` lines shaped like the
+reference's, which the analysis tooling parses.
+
+The loop hands the engine the very module the optimizer updates: the engine
+keeps its bf16 inference copy in step with it at every move, and the train
+step leaves it in eval mode, so self-play after an optimize plays the new
+weights with running statistics.
+
+Not ported (ROADMAP.md): the mesh and multi-host paths and their watchdog
+(A11), the Atari host-env loop and its frame window (A10), and the analysis
+plots the JAX loop redraws every 5 iterations (A12).
+"""
+
+from __future__ import annotations
+
+import gzip
+import json
+import os
+import pickle
+import time
+import uuid
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from minizero_tpu_torch import resolve_device
+from minizero_tpu_torch.config import Config
+from minizero_tpu_torch.envs import make_env
+from minizero_tpu_torch.learner.replay import GameRecord, ReplayBuffer
+from minizero_tpu_torch.learner.train import init_train_state, make_train_step
+from minizero_tpu_torch.models.factory import create_network, init_network
+from minizero_tpu_torch.selfplay.collector import TrajectoryCollector
+from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
+from minizero_tpu_torch.selfplay.record import game_record_from_string, serialize_game
+from minizero_tpu_torch.utils.bitpack import pack_planes, packed_channels
+
+
+def per_beta_for_iteration(cfg: Config, iteration: int) -> float:
+    """Linear anneal of the PER importance exponent toward 1
+    (reference zero_server.cpp:304-306)."""
+    if not (cfg.learner_use_per and cfg.learner_per_beta_anneal):
+        return cfg.learner_per_init_beta
+    b0 = cfg.learner_per_init_beta
+    return min(b0 + (iteration / max(cfg.zero_end_iteration, 1)) * (1.0 - b0), 1.0)
+
+
+def temperature_for_iteration(cfg: Config, iteration: int) -> float:
+    """1.0 / 0.5 / 0.25 for 0-50% / 50-75% / 75-100% of total iterations
+    (reference zero_server.cpp:301-315)."""
+    t = cfg.actor_select_action_softmax_temperature
+    if not cfg.actor_select_action_softmax_temperature_decay:
+        return t
+    frac = iteration / max(cfg.zero_end_iteration, 1)
+    if frac < 0.5:
+        return t
+    if frac < 0.75:
+        return t * 0.5
+    return t * 0.25
+
+
+def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+    """A sampled batch onto the device. On the card the copies go through
+    pinned memory without blocking the host, so the next batch is sampled
+    while the card runs this step."""
+    if device.type != "cuda":
+        return {k: torch.from_numpy(v) for k, v in batch.items()}
+    return {k: torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
+            for k, v in batch.items()}
+
+
+class ZeroLoop:
+    """Self-play, replay, SGD and checkpoints for one run directory.
+
+    ``device`` is the CUDA card by default (``resolve_device``: without a
+    card it raises) and the CPU only when asked for. Self-play evaluates
+    the net in bf16 on the card (the JAX engine's default) and in float32
+    on the CPU."""
+
+    def __init__(self, cfg: Config, run_dir: str, device=None):
+        if cfg.env_name == "atari":
+            raise NotImplementedError(
+                "the Atari zero loop (host env, frame window) is not ported yet "
+                "(ROADMAP.md, A10)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.run_dir = run_dir
+        os.makedirs(os.path.join(run_dir, "model"), exist_ok=True)
+        os.makedirs(os.path.join(run_dir, "sgf"), exist_ok=True)
+        self.env = make_env(cfg)
+        seed = cfg.program_seed if not cfg.program_auto_seed else int(time.time())
+        # the network lives on the device before the optimizer takes its
+        # parameters; the engine gets this same module
+        self.network = init_network(create_network(cfg, self.env.spec), seed=seed).to(self.device)
+        self.state = init_train_state(cfg, self.network)
+        self.engine = SelfPlayEngine(
+            self.env, cfg, self.network, device=self.device, seed=seed,
+            use_bf16=self.device.type == "cuda")
+        self.buffer = ReplayBuffer(cfg, self.env.spec)
+        self._train_step = make_train_step(cfg, self.env, self.network)
+        # the train step's rotation draws; the replay's draws stay on numpy
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + 2)
+        self.np_rng = np.random.RandomState(cfg.program_seed + 1)
+        self.is_muzero = cfg.nn_type_name.lower() != "alphazero"
+        self.last_selfplay_timing: Dict[str, float] = {}
+        self._log_file = open(os.path.join(run_dir, "Training.log"), "a")
+        self._op_log = open(os.path.join(run_dir, "op.log"), "a")
+
+    def close(self) -> None:
+        self._log_file.close()
+        self._op_log.close()
+
+    # ------------------------------------------------------------------- log
+    def log(self, message: str) -> None:
+        line = f"[{time.strftime('%Y-%m-%d %H:%M:%S')}] {message}"
+        print(line, flush=True)
+        self._log_file.write(line + "\n")
+        self._log_file.flush()
+
+    def op_log(self, message: str) -> None:
+        self._op_log.write(f"[{time.strftime('%Y-%m-%d %H:%M:%S')}] {message}\n")
+        self._op_log.flush()
+
+    # -------------------------------------------------------------- selfplay
+    def self_play_iteration(self, iteration: int) -> Dict[str, float]:
+        cfg = self.cfg
+        spec = self.env.spec
+        temperature = temperature_for_iteration(cfg, iteration)
+        collector = TrajectoryCollector(cfg, spec, cfg.zero_num_parallel_games,
+                                        seed=cfg.program_seed + iteration)
+        states = self.engine.init_batch(cfg.zero_num_parallel_games)
+        num_games, lengths, returns = 0, [], []
+        games_target = cfg.zero_num_games_per_iteration
+        record_path = os.path.join(self.run_dir, "sgf", f"{iteration}.sgf")
+        model_file = f"weight_iter_{self.state.step}"
+        t0 = time.time()
+        # chunked collection: move_scan advances every game M moves (with
+        # slot resets and resign gating on the device); the host collects a
+        # whole chunk at a time
+        scan_moves = max(1, int(cfg.zero_moves_per_dispatch))
+        enable = torch.as_tensor(collector.enable_resign_flags(), device=self.device)
+        msr = None
+        pending = None
+        # per-phase wall attribution, logged as [SelfPlay Timing]
+        t_dispatch = t_collect = t_host = 0.0
+        chunks = 0
+        with open(record_path, "a") as record_file:
+            while num_games < games_target:
+                tp = time.time()
+                stacked, states, enable, msr = self.engine.move_scan(
+                    states, temperature, scan_moves, enable, msr)
+                t_dispatch += time.time() - tp
+                chunks += 1
+                # collect the PREVIOUS chunk after this one is enqueued: its
+                # copy to the host waits only for work already queued
+                if pending is None:
+                    pending = stacked
+                    continue
+                tp = time.time()
+                finished = collector.add_scan(pending)
+                t_collect += time.time() - tp
+                pending = stacked
+                tp = time.time()
+                for fg in finished:
+                    if num_games >= games_target:
+                        # exact cutoff like the reference server, which stops
+                        # accepting SelfPlay lines at the target
+                        # (zero_server.cpp:191-213) — the chunk may overshoot
+                        break
+                    self.buffer.add_game(fg.record)
+                    record_file.write(serialize_game(spec.name, fg.record, spec.board_size,
+                                                     fg.players, model_file=model_file) + "\n")
+                    lengths.append(fg.record.length)
+                    returns.append(fg.record.result)
+                    num_games += 1
+                t_host += time.time() - tp
+        self.log(
+            f"[SelfPlay Timing] chunks: {chunks} x {scan_moves} moves, "
+            f"dispatch: {t_dispatch:.1f}s, collect: {t_collect:.1f}s, "
+            f"records: {t_host:.1f}s"
+        )
+        self.last_selfplay_timing = {"chunks": chunks, "moves_per_chunk": scan_moves,
+                                     "dispatch_s": t_dispatch, "collect_s": t_collect,
+                                     "records_s": t_host}
+        return self._selfplay_stats(iteration, num_games, lengths, returns, time.time() - t0)
+
+    def _selfplay_stats(self, iteration, num_games, lengths, returns, dt) -> Dict[str, float]:
+        stats = {
+            "games": num_games,
+            "time_s": dt,
+            "games_per_sec": num_games / max(dt, 1e-9),
+            "length_avg": float(np.mean(lengths)) if lengths else 0.0,
+            "length_std": float(np.std(lengths)) if lengths else 0.0,
+            "return_avg": float(np.mean(returns)) if returns else 0.0,
+            "return_std": float(np.std(returns)) if returns else 0.0,
+        }
+        # reference-style stats lines (zero_server.cpp:240-263)
+        self.log(
+            f"[Iteration] {iteration}: self-play {num_games} games in {dt:.1f}s "
+            f"({stats['games_per_sec']:.2f} games/s)"
+        )
+        self.log(
+            f"[SelfPlay Game Lengths] min: {min(lengths) if lengths else 0}, max: {max(lengths) if lengths else 0}, "
+            f"avg: {stats['length_avg']:.2f}, std: {stats['length_std']:.2f}"
+        )
+        self.log(
+            f"[SelfPlay Game Returns] min: {min(returns) if returns else 0}, max: {max(returns) if returns else 0}, "
+            f"avg: {stats['return_avg']:.2f}, std: {stats['return_std']:.2f}"
+        )
+        latest = self.cfg.zero_display_latest_games
+        if latest > 0 and returns:
+            lr = returns[-latest:]
+            ll = lengths[-latest:]
+            self.log(
+                f"[SelfPlay Latest {len(lr)} Games] "
+                f"lengths avg: {float(np.mean(ll)):.2f}, std: {float(np.std(ll)):.2f}; "
+                f"returns avg: {float(np.mean(lr)):.2f}, std: {float(np.std(lr)):.2f}"
+            )
+        return stats
+
+    # ------------------------------------------------------------ optimizing
+    def optimize_iteration(self, iteration: int) -> Dict[str, float]:
+        """``learner_training_step`` SGD steps, one after another on the
+        device. Batches are sampled on the host while the card runs the
+        previous step; the metrics stay on the device and are read once every
+        ``learner_training_display_step`` steps (with PER, the fresh values
+        are read after every step to refresh the sampled priorities: the
+        reference's per-step refresh, train.py:208-209)."""
+        cfg = self.cfg
+        self.buffer.per_beta = per_beta_for_iteration(cfg, iteration)
+        t0 = time.time()
+        bs = cfg.learner_batch_size
+        base_step = self.state.step
+        totals: Dict[str, torch.Tensor] = {}
+        shown = 0
+        for done in range(1, cfg.learner_training_step + 1):
+            if self.is_muzero:
+                b = self.buffer.sample_muzero(bs, self.np_rng)
+            else:
+                b = self.buffer.sample_alphazero(bs, self.np_rng)
+            sampled_index = b.pop("sampled_index")
+            metrics = self._train_step(self.state, _to_device(b, self.device), self.generator)
+            new_values = metrics.pop("_new_values", None)
+            if new_values is not None:  # PER
+                self.buffer.refresh_priorities(sampled_index, new_values.cpu().numpy())
+            for k, v in metrics.items():
+                totals[k] = totals[k] + v if k in totals else v
+            if done - shown >= cfg.learner_training_display_step:
+                keys = sorted(totals)
+                vals = torch.stack([totals[k] for k in keys]).cpu().numpy() / (done - shown)
+                self.op_log(
+                    f"nn step {base_step + done}, "
+                    f"lr: {cfg.learner_learning_rate}. "
+                    + " ".join(f"{k}: {v:.5f}" for k, v in zip(keys, vals))
+                )
+                totals = {}
+                shown = done
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.time() - t0
+        self.log(f"[Optimization] iteration {iteration}: {cfg.learner_training_step} steps in {dt:.1f}s")
+        self.log(f"Optimization_Done {self.state.step}")
+        return {"time_s": dt}
+
+    # ------------------------------------------------------------ checkpoint
+    def save_checkpoint(self) -> str:
+        """Model and optimizer state, step and config in one ``torch.save``,
+        written to a temporary name and renamed: a crash mid-write never
+        leaves a truncated newest checkpoint."""
+        step = self.state.step
+        path = os.path.join(self.run_dir, "model", f"weight_iter_{step}.ckpt")
+        payload = {
+            "training_step": step,
+            "model": self.network.state_dict(),
+            "optimizer": self.state.optimizer.state_dict(),
+            "config": self.cfg.to_string(),
+        }
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        return path
+
+    def load_checkpoint(self, path: str) -> None:
+        payload = torch.load(path, map_location=self.device, weights_only=True)
+        self.network.load_state_dict(payload["model"])
+        self.state.optimizer.load_state_dict(payload["optimizer"])
+        self.state.step = int(payload["training_step"])
+        self.network.eval()
+
+    # ---------------------------------------------------------------- resume
+    def _rebuild_features_batch(self, action_lists: List[np.ndarray]) -> List[np.ndarray]:
+        """Replay recorded actions through the batched env on the device, all
+        games at once in one padded batch, to regenerate each position's
+        pre-move feature planes (records store targets only; the reference
+        rebuilds its buffer by re-parsing sgf files, train.py:40-48). Padded
+        moves (action 0; env.step is safe on illegal or terminal states) are
+        sliced off."""
+        spec = self.env.spec
+        lens = [len(a) for a in action_lists]
+        max_len = max(lens, default=0)
+        if max_len == 0:
+            c = (packed_channels(spec.num_input_channels) if spec.binary_features
+                 else spec.num_input_channels)
+            return [np.zeros((0, spec.input_height, spec.input_width, c), np.uint8)
+                    for _ in action_lists]
+        acts = np.zeros((len(action_lists), max_len), np.int32)
+        for i, a in enumerate(action_lists):
+            acts[i, : len(a)] = np.asarray(a, np.int32)
+        acts_t = torch.as_tensor(acts, device=self.device)
+        state = self.env.init(len(action_lists), device=self.device)
+        rows = []
+        for t in range(max_len):
+            f = self.env.features(state)
+            rows.append(pack_planes(f) if spec.binary_features else f.to(torch.uint8))
+            state = self.env.step(state, acts_t[:, t])
+        feats = torch.stack(rows).cpu().numpy()  # [L, B, H, W, C']
+        return [np.ascontiguousarray(feats[: lens[i], i]) for i in range(len(action_lists))]
+
+    def resume(self) -> int:
+        """Continue mode (reference zero-server.sh:116-128): load the latest
+        checkpoint and rebuild the replay window from the last
+        ``zero_replay_buffer`` iterations' record files (``.sgf`` or
+        ``.sgf.gz``). Returns the iteration to continue from."""
+        model_dir = os.path.join(self.run_dir, "model")
+        ckpts = sorted(
+            (f for f in os.listdir(model_dir) if f.endswith(".ckpt")),
+            key=lambda f: int(f.split("_")[-1].split(".")[0]),
+        ) if os.path.isdir(model_dir) else []
+        if not ckpts:
+            return self.cfg.zero_start_iteration
+        # newest first; skip unloadable files instead of wedging a
+        # supervisor's relaunch loop on a permanent load error
+        for name in reversed(ckpts):
+            try:
+                self.load_checkpoint(os.path.join(model_dir, name))
+                break
+            except (OSError, RuntimeError, KeyError, ValueError, EOFError,
+                    pickle.UnpicklingError) as exc:
+                self.log(f"[Resume] skipping unreadable checkpoint {name}: {exc}")
+        else:
+            return self.cfg.zero_start_iteration
+        start_iter = self.state.step // max(self.cfg.learner_training_step, 1)
+        sgf_dir = os.path.join(self.run_dir, "sgf")
+        lo = max(1, start_iter - self.cfg.zero_replay_buffer + 1)
+        records: List[GameRecord] = []
+        for it in range(lo, start_iter + 1):
+            path = os.path.join(sgf_dir, f"{it}.sgf")
+            if os.path.exists(path):
+                opener = open(path)
+            elif os.path.exists(path + ".gz"):
+                opener = gzip.open(path + ".gz", "rt")
+            else:
+                continue
+            with opener:
+                for line in opener:
+                    line = line.strip()
+                    if line:
+                        records.append(game_record_from_string(line, self.env.spec.action_size)[1])
+        # replayed 256 games at a time (the JAX loop's flush size)
+        for i in range(0, len(records), 256):
+            part = records[i:i + 256]
+            for rec, f in zip(part, self._rebuild_features_batch([r.actions for r in part])):
+                rec.features = f
+                self.buffer.add_game(rec)
+        self.cfg = self.cfg.replace(zero_start_iteration=start_iter)
+        self.log(f"[Resume] iteration {start_iter}, {len(records)} games reloaded")
+        return start_iter
+
+    # -------------------------------------------------------------- the loop
+    def run(self) -> None:
+        """Iterations ``zero_start_iteration + 1 .. zero_end_iteration``, each
+        self-play, optimize and a checkpoint, after the bootstrap checkpoint
+        weight_iter_{step} (zero-server.sh:113-115). Each iteration appends
+        one row to ``perf.jsonl``: wall-clock stamps (``time.time()``), the
+        phase seconds, and this process's run token, so rows of resumed runs
+        are told apart."""
+        cfg = self.cfg
+        self.save_checkpoint()
+        run_token = uuid.uuid4().hex[:12]
+        with open(os.path.join(self.run_dir, "perf.jsonl"), "a") as perf_log:
+            for iteration in range(cfg.zero_start_iteration + 1, cfg.zero_end_iteration + 1):
+                w0, p0 = time.time(), time.perf_counter()
+                self.self_play_iteration(iteration)
+                w1, p1 = time.time(), time.perf_counter()
+                self.optimize_iteration(iteration)
+                w2, p2 = time.time(), time.perf_counter()
+                perf_log.write(json.dumps({
+                    "iteration": iteration, "run": run_token, "pid": os.getpid(),
+                    "wall_start": w0, "wall_selfplay_done": w1, "wall_end": w2,
+                    "selfplay_s": p1 - p0, "optimize_s": p2 - p1}) + "\n")
+                perf_log.flush()
+                self.save_checkpoint()

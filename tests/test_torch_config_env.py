@@ -42,7 +42,8 @@ def test_config_presets_and_to_string_match(algo, env_name):
 
 
 def test_env_registry_go_only():
-    assert available_envs() == ["go"]
+    # the ported envs: Go, and TicTacToe for the zero loop's CPU tests
+    assert available_envs() == ["go", "tictactoe"]
     cfg = tcfg.default_config("othello")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_env(cfg)

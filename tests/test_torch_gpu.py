@@ -713,6 +713,91 @@ def test_tree_step_reward_regime_chain_of_n_levels_with_rescale():
     assert bool((trees.visits[:, 0] == sims + 1).all())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["gaz", "gmz"])
+def test_train_step_on_card_matches_cpu(algo):
+    """3 SGD steps of the AlphaZero or MuZero (K=5) train step on the card
+    and on the CPU, Go 9x9, 1 x 32, batch 64, each step from the same
+    weights, running statistics, momentum and rotation ids, TF32 off: the
+    metrics, parameters and running statistics agree within 1e-4 (the card
+    sums the convolutions in another order, and a ReLU input within float
+    noise of 0 may land on either side of its kink: the momentum, one
+    step's raw gradient, is not compared; ``chip_smoke.py`` phase 6c)."""
+    _need_card()
+    import copy
+
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.learner.train import init_train_state, make_train_step
+    from minizero_tpu_torch.models.factory import create_network, init_network
+    from minizero_tpu_torch.utils.bitpack import pack_planes
+
+    over = dict(algorithm_preset(algo))
+    over.update(nn_num_hidden_channels=32, nn_num_value_hidden_channels=32)
+    cfg = default_config("go", **over)
+    env = make_env(cfg)
+    spec, b, k = env.spec, 64, cfg.learner_muzero_unrolling_step
+    cpu_net = init_network(create_network(cfg, spec), seed=3)
+    card_net = copy.deepcopy(cpu_net).cuda()
+    cpu_state, card_state = init_train_state(cfg, cpu_net), init_train_state(cfg, card_net)
+    cpu_step, card_step = make_train_step(cfg, env, cpu_net), make_train_step(cfg, env, card_net)
+    rng = np.random.default_rng(4)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for s in range(3):
+            card_net.load_state_dict(cpu_net.state_dict())
+            card_state.optimizer.load_state_dict(copy.deepcopy(cpu_state.optimizer.state_dict()))
+            card_state.step = cpu_state.step
+            planes = torch.from_numpy(rng.random((b, 9, 9, 18)) > 0.5)
+            p = rng.random((b, k + 1, spec.action_size) if algo == "gmz" else (b, spec.action_size))
+            batch = {"features": pack_planes(planes).numpy(), "loss_scale": np.ones(b, np.float32),
+                     "policy": (p / p.sum(-1, keepdims=True)).astype(np.float16)}
+            if algo == "gmz":
+                batch.update(value=rng.choice([-1.0, 1.0], (b, k + 1)).astype(np.float32),
+                             actions=rng.integers(0, spec.action_size, (b, k)).astype(np.int32),
+                             reward=np.zeros((b, k), np.float32))
+            else:
+                batch["value"] = rng.choice([-1.0, 1.0], b).astype(np.float32)
+            rots = torch.from_numpy(rng.integers(0, 8, b))
+            m_cpu = cpu_step(cpu_state, batch, rotations=rots)
+            m_card = card_step(card_state, batch, rotations=rots.cuda())
+            for key in m_cpu:
+                torch.testing.assert_close(m_card[key].cpu(), m_cpu[key], rtol=0, atol=1e-4,
+                                           msg=f"step {s}: {key}")
+            sd_card = card_net.state_dict()
+            for key, want in cpu_net.state_dict().items():
+                torch.testing.assert_close(sd_card[key].cpu(), want, rtol=0, atol=1e-4,
+                                           msg=f"step {s}: {key}")
+            assert not card_net.training
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.gpu
+def test_native_codec_builds_and_loads_on_the_card_machine():
+    """The record codec builds with g++ into ``_build/`` and writes the
+    plain writer's strings."""
+    _need_card()
+    from minizero_tpu_torch import native
+    from minizero_tpu_torch.learner.replay import GameRecord
+    from minizero_tpu_torch.selfplay.record import serialize_game
+
+    assert native.load() is not None, native.load_error()
+    assert os.path.exists(native.library_path())
+    rng = np.random.default_rng(5)
+    for length in (0, 1, 40):
+        p = rng.random((length, 82)) * (rng.random((length, 82)) > 0.5)
+        p[:, 0] += 1e-3
+        rec = GameRecord(actions=rng.integers(0, 82, length).astype(np.int32),
+                         policy=(p / p.sum(-1, keepdims=True)).astype(np.float16),
+                         values=rng.uniform(-1, 1, length).astype(np.float32),
+                         rewards=np.zeros(length, np.float32),
+                         features=np.zeros((length, 9, 9, 3), np.uint8), result=1.0)
+        assert (serialize_game("go_9x9", rec, 9, model_file="weight_iter_0")
+                == serialize_game("go_9x9", rec, 9, model_file="weight_iter_0", plain=True))
+
+
 def test_port_and_chip_smoke_import_without_jax():
     """``minizero_tpu_torch`` (every module, the MuZero ones by name) and
     ``chip_smoke`` import with jax, flax, msgpack and the JAX package
@@ -727,7 +812,8 @@ def test_port_and_chip_smoke_import_without_jax():
         "    importlib.import_module(name)",
         "assert {'minizero_tpu_torch.models.muzero', 'minizero_tpu_torch.selfplay.muzero_search',",
         "        'minizero_tpu_torch.envs.atari', 'minizero_tpu_torch.weights',",
-        "        'minizero_tpu_torch.search.decide'} <= set(names), names",
+        "        'minizero_tpu_torch.search.decide', 'minizero_tpu_torch.zero.loop',",
+        "        'minizero_tpu_torch.learner.train', 'minizero_tpu_torch.native'} <= set(names), names",
         "import chip_smoke",
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'minizero_tpu') and sys.modules[k] is not None",
         "               for k in list(sys.modules))",
