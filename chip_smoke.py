@@ -5,8 +5,9 @@
 Drives the port's self-play and search paths (``minizero_tpu_torch``) at
 full width, with 1 x 256 nets made from a seed and bf16 inference, then one
 whole zero iteration (self-play, records, replay, SGD, checkpoint) of the
-flagship and of Gumbel MuZero, and holds every CUDA kernel of them against
-its plain PyTorch version on the card:
+flagship and of Gumbel MuZero, then the flagship run's eval match, GTP
+console and the other CLI modes, and holds every CUDA kernel of them
+against its plain PyTorch version on the card:
 
 - the flagship Go 9x9 Gumbel AlphaZero path, n=16, 1024 games (tree step
   B1, ``csrc/tree_step.cu``, board regime);
@@ -48,7 +49,20 @@ Phases:
      device memory; 6b the same for Gumbel MuZero (K=5); 6c the train step
      on the card against the CPU (TF32 off) and a fixed full-width batch
      whose loss falls; 6d the native record codec against the plain
-     writer on 64 of the iteration's games.
+     writer on 64 of the iteration's games;
+  7. eval through the CLI (``-mode eval`` on phase 6's gaz run): its
+     iteration-1 checkpoint against its bootstrap one, 1024 games at
+     B=1024 on the synchronized path, B1 beside its plain version over the
+     first 16 plies, W/L/D, Elo, ``eval.csv``, plies, ms per ply, games/s,
+     B1 launches; a self-match of the iteration-1 net (rotation off, two
+     random opening plies) whose wins must split evenly; 7b the GTP console
+     (``-mode console`` as a subprocess, a script of ``load_model``,
+     ``play``, five ``genmove``, ``pv``, ``tree_string``, ``showboard``,
+     ``final_score``) plain, with a think time limit and with think batches
+     of 8, every reply ``=``, ms per ``genmove``; one ``genmove`` in this
+     process with B1 at B=1 beside its plain version, and B1's time there;
+     7c ``-mode sp`` (128 records at B=1024, parsed back), ``-mode
+     env_test`` on Go 9x9 and ``-mode zero_training_name``, each timed.
 
 Prints one progress line per phase, then a JSON line of kernel numbers, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -58,14 +72,17 @@ is present. Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import atexit
 import copy
 import ctypes
 import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -106,6 +123,15 @@ ZERO_STEPS = 500
 SGD_TIMED_FROM = 11
 CODEC_GAMES = 64
 TRAIN_ATOL = 1e-4
+# phase 7: eval, console and the other CLI modes on phase 6's gaz run (the
+# synchronized match reads its finished flags every EVAL_PLIES_PER_CHECK
+# plies, eval/match.py); B1 beside its plain version over the first
+# EVAL_CHECKED_PLIES plies of the match; the console's time limit (s)
+EVAL_GAMES = 1024
+EVAL_CHECKED_PLIES = 16
+EVAL_PLIES_PER_CHECK = 16
+CONSOLE_TIME_LIMIT = 0.01
+SP_GAMES = 128
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -172,8 +198,7 @@ class TreeStepCheck:
         node_idx, phase = rest[-2], rest[-1]
         leaf = rest[:-2]
         ref_in = trees.clone()
-        ref_sel = dataclasses.replace(sel, **{f.name: getattr(sel, f.name).clone()
-                                              for f in dataclasses.fields(sel)})
+        ref_sel = sel.clone()
         if node_idx == self.keep_sim and self.kept is None:
             self.kept = (spec, trees.clone(), ref_sel, tuple(x.clone() for x in leaf),
                          node_idx, phase, None if leaf_reward is None else leaf_reward.clone())
@@ -183,6 +208,8 @@ class TreeStepCheck:
                                    leaf_reward=leaf_reward)
         where = f"sim {node_idx} (phase {phase})"
         for f in dataclasses.fields(got_t):
+            if getattr(got_t, f.name) is None and getattr(want_t, f.name) is None:
+                continue  # a tree's virtual loss, present only in think batches
             self._compare(f.name, getattr(got_t, f.name), getattr(want_t, f.name), where)
         for name in ("parent", "action", "leaf", "is_new", "path"):
             self._compare(f"selection.{name}", getattr(got_s, name), getattr(want_s, name), where)
@@ -859,7 +886,8 @@ def same_tensors(a, b) -> bool:
     return a == b
 
 
-def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int = 0) -> dict:
+def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int = 0,
+                   run_dir: str = "") -> dict:
     """One iteration of the zero loop at the flagship's widths: ``ZeroLoop``
     on the card (``algorithm_preset(algo)``, Go 9x9, 1 x 256, 1024 games in
     lock-step, 500 SGD steps at batch 1024), ``run()`` from a seeded random
@@ -868,8 +896,10 @@ def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int =
     just before ``run()`` and read just after. Checks the records, the step
     count, the logs, and a checkpoint reload into a fresh loop; with
     ``codec_games``, the native codec against the plain writer on that many
-    of the iteration's games. Returns the numbers."""
-    import tempfile
+    of the iteration's games. ``run_dir`` keeps the run (checkpoints,
+    records) for later phases; by default it goes to a temporary directory
+    removed at the end. Returns the numbers and the config."""
+    import contextlib
 
     from minizero_tpu_torch import native
     from minizero_tpu_torch.config import algorithm_preset, default_config
@@ -884,7 +914,9 @@ def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int =
     cfg = default_config("go", **over)
     what = f"zero iteration ({algo})"
     out = {}
-    with tempfile.TemporaryDirectory(prefix=f"zero_{algo}_") as run_dir:
+    place = (contextlib.nullcontext(run_dir) if run_dir
+             else tempfile.TemporaryDirectory(prefix=f"zero_{algo}_"))
+    with place as run_dir:
         loop = ZeroLoop(cfg, run_dir)
         engine = loop.engine
         if engine.network is not loop.network or loop.device.type != "cuda":
@@ -996,7 +1028,7 @@ def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int =
                     fail(f"codec: game {i}: the native and the plain record strings differ")
             out["codec"] = (codec_games, t_native, t_plain, sum(len(x) for x in lines[:codec_games]))
         out.update(
-            games=ZERO_GAMES, moves=moves, launches=launches["tree_step"], checked=check.calls,
+            cfg=cfg, games=ZERO_GAMES, moves=moves, launches=launches["tree_step"], checked=check.calls,
             check_err=check.max_abs_err, selfplay_s=row["selfplay_s"],
             optimize_s=row["optimize_s"], timing=timing,
             ms_per_step=timer.ms_per_step(), lengths=[r.length for r in loop.buffer.games],
@@ -1124,6 +1156,187 @@ def fixed_batch_loss_falls(algo: str, seed: int) -> str:
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         fail(f"train step ({algo}): 30 steps on a fixed batch did not lower its loss: {losses}")
     return f"loss {losses[0]:.4f} -> {losses[-1]:.4f} over 30 steps"
+
+
+# ---------------------------------------------------------------------------
+# phase 7 helpers: eval, the GTP console and the other CLI modes, through
+# the port's CLI
+# ---------------------------------------------------------------------------
+
+class FirstCallsChecked:
+    """A tree step that holds its first ``n`` calls against the plain
+    version (``TreeStepCheck``) and runs the kernel alone after them."""
+
+    def __init__(self, n: int):
+        self.check = TreeStepCheck(keep_sim=-1)
+        self.n = n
+
+    def __call__(self, *args, **kwargs):
+        if self.check.calls < self.n:
+            return self.check(*args, **kwargs)
+        return self.check.kernel(*args, **kwargs)
+
+
+def run_cli(argv):
+    """``python -m minizero_tpu_torch`` in this process on the card:
+    (its standard output, wall seconds to the card's last work)."""
+    import contextlib
+    import io
+
+    from minizero_tpu_torch.__main__ import main as cli
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    if rc != 0:
+        fail(f"{' '.join(argv)} returned {rc}")
+    return buf.getvalue(), seconds
+
+
+def eval_phase(run_dir: str, cfg_path: str, zero_counts, counts) -> dict:
+    """``-mode eval`` on phase 6's gaz run: its iteration-1 checkpoint
+    against its bootstrap one, EVAL_GAMES games in lock-step at B=1024 on
+    the synchronized path, the first EVAL_CHECKED_PLIES plies' tree steps
+    beside their plain version; then a self-match of the iteration-1 net,
+    rotation off, two random opening plies, whose result must split
+    evenly. Launch counters are 0 just before each and read just after."""
+    import minizero_tpu_torch.selfplay.engine as engine_mod
+    from minizero_tpu_torch.config import default_config
+    from minizero_tpu_torch.eval.match import load_checkpoint_variables, play_match
+
+    cfg = default_config("go").load_file(cfg_path)
+    sims = cfg.actor_num_simulation
+    per_check = (sims + 1) * EVAL_PLIES_PER_CHECK
+    checked = FirstCallsChecked(EVAL_CHECKED_PLIES * (sims + 1))
+    engine_mod.fused_tree_step = checked
+    zero_counts()
+    try:
+        text, seconds = run_cli(["-mode", "eval", "-run_dir", run_dir, "-conf_file", cfg_path,
+                                 "-num_games", str(EVAL_GAMES)])
+    finally:
+        engine_mod.fused_tree_step = checked.check.kernel
+    launches = counts()
+    b1 = launches.pop("tree_step")
+    if b1 == 0 or b1 % per_check or any(launches.values()):
+        fail(f"eval: {b1} B1 launches (expected a multiple of {per_check}), others {launches}")
+    if checked.check.calls != checked.n or checked.check.reward_calls:
+        fail(f"eval: {checked.check.calls} tree steps checked, expected {checked.n}")
+    rows = open(os.path.join(run_dir, "eval.csv")).read().splitlines()
+    cells = dict(zip(rows[0].split(","), rows[1].split(","))) if len(rows) == 2 else {}
+    games = sum(int(cells.get(k, -1)) for k in ("wins", "losses", "draws"))
+    if games != EVAL_GAMES or not np.isfinite(float(cells["elo"])):
+        fail(f"eval: eval.csv holds {rows}, expected one row of {EVAL_GAMES} games")
+    out = {"line": text.strip(), "seconds": seconds, "plies": b1 // (sims + 1), "launches": b1,
+           "check_err": checked.check.max_abs_err, "checked": checked.check.calls,
+           "elo": float(cells["elo"]), "wld": (cells["wins"], cells["losses"], cells["draws"])}
+    ckpt = os.path.join(run_dir, "model", cells["new"])
+    net = load_checkpoint_variables(ckpt, cfg)
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r = play_match(cfg.replace(actor_use_random_rotation_features=False), net, net,
+                   num_games=EVAL_GAMES, seed=5, opening_random_plies=2)
+    torch.cuda.synchronize()
+    out["self_seconds"] = time.perf_counter() - t
+    b1 = counts()["tree_step"]
+    if r.games != EVAL_GAMES or r.p1_wins != r.p2_wins or b1 % per_check:
+        fail(f"eval self-match: {r} ({b1} B1 launches); a net against itself with "
+             f"mirrored openings must split its wins evenly")
+    out.update(self_result=r, self_plies=b1 // (sims + 1), ckpt=ckpt)
+    return out
+
+
+CONSOLE_SCRIPT = ["name", "load_model {ckpt}", "clear_board", "play b E5", "genmove w",
+                  "genmove b", "genmove w", "genmove b", "genmove w", "pv", "tree_string",
+                  "showboard", "final_score", "quit"]
+
+
+def console_phase(cfg_path: str, ckpt: str) -> dict:
+    """``python -m minizero_tpu_torch -mode console`` as a subprocess, a GTP
+    script on its standard input, three times: plain, with a think time
+    limit, with think batches of 8. Every reply must be ``=``. Returns ms
+    per ``genmove`` (the console's own ``Spent Time``) for each, first
+    ``genmove`` apart (it pays for the first forward)."""
+    script = "\n".join(CONSOLE_SCRIPT).format(ckpt=ckpt) + "\n"
+    out = {}
+    for label, extra in (("plain", ""), ("timed", f"actor_mcts_think_time_limit={CONSOLE_TIME_LIMIT}"),
+                         ("think-batch", "actor_mcts_think_batch_size=8")):
+        argv = [sys.executable, "-m", "minizero_tpu_torch", "-mode", "console",
+                "-conf_file", cfg_path] + (["-conf_str", extra] if extra else [])
+        t = time.perf_counter()
+        proc = subprocess.run(argv, input=script, capture_output=True, text=True, timeout=600,
+                              cwd=ROOT)
+        seconds = time.perf_counter() - t
+        if proc.returncode != 0:
+            fail(f"console ({label}): exit {proc.returncode}: {proc.stderr[-2000:]}")
+        replies = [r.strip() for r in proc.stdout.split("\n\n") if r.strip()]
+        if len(replies) != len(CONSOLE_SCRIPT) or not all(r.startswith("=") for r in replies):
+            fail(f"console ({label}): {len(replies)} replies, not all '=': {proc.stdout[-2000:]}")
+        spent = [1e3 * float(x) for x in re.findall(r"Spent Time = ([0-9.]+) \(s\)", proc.stderr)]
+        if len(spent) != 5:
+            fail(f"console ({label}): {len(spent)} genmove times in its stderr")
+        moves = [r.split(" ", 1)[1] for r in replies[4:9]]
+        out[label] = {"first_ms": spent[0], "ms": float(np.mean(spent[1:])), "seconds": seconds,
+                      "moves": moves}
+    return out
+
+
+def console_b1_check(cfg_path: str, ckpt: str) -> dict:
+    """One console ``genmove`` in this process (``ConsoleActor``, B=1,
+    float32) with each of its tree steps beside the plain version, and B1's
+    numbers at B=1 from its kept state."""
+    from minizero_tpu_torch.config import default_config
+    from minizero_tpu_torch.console.gtp import ConsoleActor
+    from minizero_tpu_torch.eval.match import load_checkpoint_variables
+
+    cfg = default_config("go").load_file(cfg_path)
+    actor = ConsoleActor(cfg, network=load_checkpoint_variables(ckpt, cfg))
+    check = TreeStepCheck(keep_sim=cfg.actor_num_simulation // 2)
+    actor.engine.tree_step = check
+    actor.act(40)
+    action, _ = actor.think()
+    torch.cuda.synchronize()
+    if check.calls != cfg.actor_num_simulation + 1 or actor.device.type != "cuda":
+        fail(f"console genmove: {check.calls} tree steps checked on {actor.device}")
+    k_ms, p_ms, bound_ms, bound_by, _, _, _ = tree_step_numbers(check.kept)
+    return {"calls": check.calls, "err": check.max_abs_err, "action": action, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def other_modes_phase(run_dir: str, cfg_path: str, zero_counts, counts) -> dict:
+    """``-mode sp`` (the flagship config, B=1024, SP_GAMES records that
+    ``parse_game`` reads back), ``-mode env_test`` on Go 9x9 and
+    ``-mode zero_training_name``, each timed."""
+    from minizero_tpu_torch.config import default_config
+    from minizero_tpu_torch.selfplay.record import parse_game
+
+    cfg = default_config("go").load_file(cfg_path)
+    records = os.path.join(run_dir, "sp.sgf")
+    zero_counts()
+    _, sp_s = run_cli(["-mode", "sp", "-conf_file", cfg_path, "-num_games", str(SP_GAMES),
+                       "-output", records])
+    launches = counts()
+    lines = open(records).read().splitlines()
+    for i, line in enumerate(lines):
+        tags, moves = parse_game(line, 82)
+        if tags.get("GM") != "go_9x9" or tags.get("SZ") != "9" or not moves:
+            fail(f"-mode sp: record {i} does not parse: {line[:200]}")
+    chunk = cfg.zero_moves_per_dispatch * (cfg.actor_num_simulation + 1)
+    if len(lines) != SP_GAMES or launches["tree_step"] == 0 or launches["tree_step"] % chunk:
+        fail(f"-mode sp: {len(lines)} records (expected {SP_GAMES}), launches {launches}")
+    text, env_s = run_cli(["-mode", "env_test", "-conf_str", "env_name=go"])
+    if "replay determinism check passed" not in text:
+        fail(f"-mode env_test: {text}")
+    name, name_s = run_cli(["-mode", "zero_training_name", "-conf_file", cfg_path])
+    if name.strip() != "go_9x9_gaz_1bx256_n16":
+        fail(f"-mode zero_training_name printed {name!r}")
+    return {"sp_s": sp_s, "sp_launches": launches["tree_step"], "sp_records": len(lines),
+            "sp_mib": os.path.getsize(records) / 2**20, "env_test": text.strip().splitlines()[0],
+            "env_s": env_s, "name": name.strip(), "name_s": name_s}
 
 
 def main() -> None:
@@ -1518,7 +1731,11 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     t = time.perf_counter()
-    gaz_zero = zero_iteration("gaz", 11, zero_counts, counts, codec_games=CODEC_GAMES)
+    # the gaz run stays for phase 7 and goes at exit, a failed check's too
+    gaz_dir = tempfile.mkdtemp(prefix="zero_gaz_")
+    atexit.register(shutil.rmtree, gaz_dir, ignore_errors=True)
+    gaz_zero = zero_iteration("gaz", 11, zero_counts, counts, codec_games=CODEC_GAMES,
+                              run_dir=gaz_dir)
     log(f"phase 6 zero iteration (gaz n=16, 1x256, B={BATCH}; TF32 convolutions): "
         f"{zero_line(gaz_zero)}; phase in {time.perf_counter() - t:.2f} s")
     n_codec, t_native, t_plain, codec_bytes = gaz_zero["codec"]
@@ -1538,6 +1755,39 @@ def main() -> None:
         log(f"phase 6c train step card vs CPU ({algo}, Go 9x9 1x32, batch 64, f32): {msg}; "
             f"full width (1x256, batch {ZERO_BATCH}): {fixed_batch_loss_falls(algo, 14)}")
     log(f"phase 6c done in {time.perf_counter() - t:.2f} s")
+
+    # ---- 7. eval, console and the other CLI modes on the gaz run ----------
+    torch.backends.cudnn.allow_tf32 = True
+    cfg_path = os.path.join(gaz_dir, "gaz.cfg")
+    gaz_zero["cfg"].save_file(cfg_path)
+    ev = eval_phase(gaz_dir, cfg_path, zero_counts, counts)
+    eval_ms_per_ply = 1e3 * ev["seconds"] / ev["plies"]
+    self_ms_per_ply = 1e3 * ev["self_seconds"] / ev["self_plies"]
+    log(f"phase 7 eval (-mode eval, gaz n=16, 1x256 bf16, {EVAL_GAMES} games at B={BATCH}, "
+        f"synchronized): {ev['line']} | W/L/D {'/'.join(ev['wld'])}, Elo {ev['elo']:.1f}; "
+        f"{ev['plies']} plies in {ev['seconds']:.2f} s: {eval_ms_per_ply:.1f} ms/ply, "
+        f"{EVAL_GAMES / ev['seconds']:.1f} games/s; B1 launches {ev['launches']} "
+        f"(= {ev['plies']} plies x 17), the first {ev['checked']} beside the plain version "
+        f"(max |diff| {ev['check_err']:.3g}); self-match (rotation off, 2 random opening "
+        f"plies): {ev['self_result']}, {ev['self_plies']} plies in {ev['self_seconds']:.2f} s: "
+        f"{self_ms_per_ply:.1f} ms/ply, {EVAL_GAMES / ev['self_seconds']:.1f} games/s")
+    t = time.perf_counter()
+    con = console_phase(cfg_path, ev["ckpt"])
+    b1c = console_b1_check(cfg_path, ev["ckpt"])
+    log(f"phase 7b console (-mode console subprocess, f32, B=1, checkpoint "
+        f"{os.path.basename(ev['ckpt'])}): " + "; ".join(
+            f"{label}: every reply '=', genmove {c['ms']:.1f} ms (first {c['first_ms']:.1f} ms), "
+            f"moves {' '.join(c['moves'])}, process {c['seconds']:.1f} s"
+            for label, c in con.items())
+        + f" (time limit {CONSOLE_TIME_LIMIT} s); in process: {b1c['calls']} tree steps of one "
+        f"genmove at B=1 equal to the plain version (max |diff| {b1c['err']:.3g}); B1 at B=1 "
+        f"{b1c['ms']:.5f} ms, plain {b1c['plain_ms']:.3f} ms, bound {b1c['bound_ms']:.6f} ms "
+        f"({b1c['bound_by']}); phase in {time.perf_counter() - t:.2f} s")
+    om = other_modes_phase(gaz_dir, cfg_path, zero_counts, counts)
+    log(f"phase 7c -mode sp (gaz n=16, B={BATCH}): {om['sp_records']} records "
+        f"({om['sp_mib']:.2f} MiB) parsed back, in {om['sp_s']:.2f} s, B1 launches "
+        f"{om['sp_launches']}; -mode env_test (Go 9x9): {om['env_test']} in {om['env_s']:.2f} s; "
+        f"-mode zero_training_name: {om['name']} in {om['name_s']:.3f} s")
 
     result = {"kernels": [{
         "name": "tree_step",
@@ -1591,6 +1841,16 @@ def main() -> None:
         "az200_env_steps_per_s": az_steps_per_s, "az200_ms_per_move": az_ms_per_move,
         "gmz_env_steps_per_s": mz_steps_per_s, "gmz_ms_per_move": mz_ms_per_move,
         "atari_mz50_ms_per_search": at_ms_per_search,
+        "eval_ms_per_ply": eval_ms_per_ply, "eval_games_per_s": EVAL_GAMES / ev["seconds"],
+        "eval_plies": ev["plies"], "eval_b1_launches": ev["launches"],
+        "eval_self_match_ms_per_ply": self_ms_per_ply,
+        "eval_self_match_games_per_s": EVAL_GAMES / ev["self_seconds"],
+        "console_ms_per_genmove": con["plain"]["ms"],
+        "console_timed_ms_per_genmove": con["timed"]["ms"],
+        "console_think_batch_ms_per_genmove": con["think-batch"]["ms"],
+        "console_b1_ms": b1c["ms"], "console_b1_plain_ms": b1c["plain_ms"],
+        "console_b1_bound_ms": b1c["bound_ms"], "sp_seconds": om["sp_s"],
+        "sp_b1_launches": om["sp_launches"],
         **{f"zero_{algo}_{key}": val for algo, z in (("gaz", gaz_zero), ("gmz", gmz_zero))
            for key, val in (("sgd_steps_per_s", 1e3 / z["ms_per_step"]),
                             ("ms_per_sgd_step", z["ms_per_step"]),

@@ -1,23 +1,32 @@
 """Mode-dispatch CLI (port of ``minizero_tpu/__main__.py``; reference
 ``minizero/console/mode_handler.cpp``).
 
-    python -m minizero_tpu_torch -mode zero -run_dir DIR [-conf_file f] [-conf_str s]
-    python -m minizero_tpu_torch -gen f [-conf_str s]
+    python -m minizero_tpu_torch -mode <mode> [-conf_file f] [-conf_str s] [-gen f]
+                                 [-platform cpu]
 
-``zero`` runs the single-device zero training loop (``zero/loop.py``) on the
-card, continuing from the run directory's newest checkpoint where it has
-one; ``-gen`` writes an annotated config file and exits. The other modes of
-the JAX package (console, sp, env_test, zero_training_name, eval,
-remove_obs, recover_obs) are not ported yet (ROADMAP.md, A7).
+Modes (``mode_handler.cpp:20-27``): ``console`` (GTP on stdin), ``sp``
+(standalone self-play to a record file), ``zero`` (the single-device zero
+training loop, continuing from the run directory's newest checkpoint),
+``env_test`` (random playout and replay self-check), ``zero_training_name``
+(the canonical run name), ``eval`` (a training run's checkpoint ladder, or
+two runs against each other with ``-run_dir_b``). ``-gen`` writes an
+annotated config file and exits. Everything runs on the card unless
+``-platform cpu`` asks for the CPU.
+
+Not ported (ROADMAP.md): ``-multi_device`` (A11), Atari ``sp`` (A10),
+``remove_obs`` and ``recover_obs`` (A12).
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
+import dataclasses
+import os
 import sys
 
-_NOT_PORTED = ("console", "sp", "env_test", "zero_training_name", "eval", "remove_obs",
-               "recover_obs")
+import numpy as np
+import torch
 
 
 def build_config(args):
@@ -36,33 +45,169 @@ def build_config(args):
     return cfg
 
 
+def training_name(cfg) -> str:
+    """reference ModeHandler::runZeroTrainingName (mode_handler.cpp:157-165):
+    "{env}_{gumbel?}{az|mz}_{blocks}bx{channels}_n{sims}"."""
+    alg = ("g" if cfg.actor_use_gumbel else "") + (
+        "az" if cfg.nn_type_name == "alphazero" else "mz")
+    name = cfg.env_name
+    if cfg.env_board_size:
+        name += f"_{cfg.env_board_size}x{cfg.env_board_size}"
+    return f"{name}_{alg}_{cfg.nn_num_blocks}bx{cfg.nn_num_hidden_channels}_n{cfg.actor_num_simulation}"
+
+
+def run_env_test(cfg, device=None) -> list:
+    """Random playout and replay check (reference ModeHandler::runEnvTest,
+    mode_handler.cpp:167-192): uniform legal moves drawn by numpy from
+    ``program_seed`` until the game ends, then the same actions replayed
+    from a fresh state must give the same state. Returns the actions."""
+    from minizero_tpu_torch import resolve_device
+    from minizero_tpu_torch.envs import make_env
+
+    dev = resolve_device(device)
+    env = make_env(cfg)
+    rng = np.random.RandomState(cfg.program_seed)
+    gen = torch.Generator(device=dev).manual_seed(cfg.program_seed)
+    state = env.init_random(1, gen, device=dev)
+    actions = []
+    for move in range(env.spec.max_game_length + 1):
+        if bool(env.is_terminal(state)[0]):
+            break
+        legal = np.nonzero(env.legal_mask(state)[0].cpu().numpy())[0]
+        assert len(legal) > 0, f"no legal action at move {move} (non-terminal)"
+        a = int(rng.choice(legal))
+        state = env.step(state, torch.tensor([a], dtype=torch.int32, device=dev))
+        actions.append(a)
+    print(f"played {len(actions)} moves; terminal={bool(env.is_terminal(state)[0])}; "
+          f"eval={float(env.eval_score(state)[0]):g}")
+    replay = env.init_random(1, gen, device=dev)
+    for a in actions:
+        replay = env.step(replay, torch.tensor([a], dtype=torch.int32, device=dev))
+    for f in dataclasses.fields(state):
+        if not torch.equal(getattr(state, f.name), getattr(replay, f.name)):
+            raise AssertionError(f"replay determinism check failed: {f.name} differs")
+    print("replay determinism check passed")
+    return actions
+
+
+def run_selfplay(cfg, num_games: int, output: str, device=None) -> None:
+    """Standalone self-play: ``num_games`` finished games as records, one a
+    line, to ``output`` (stdout when empty), with a seeded random net."""
+    from minizero_tpu_torch import resolve_device
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.models.factory import create_network, init_network
+    from minizero_tpu_torch.selfplay.collector import TrajectoryCollector
+    from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
+    from minizero_tpu_torch.selfplay.record import serialize_game
+
+    if cfg.env_name == "atari":
+        raise NotImplementedError(
+            "Atari self-play (the host env engine) is not ported yet (ROADMAP.md, A10)")
+    dev = resolve_device(device)
+    env = make_env(cfg)
+    net = init_network(create_network(cfg, env.spec), seed=cfg.program_seed)
+    engine = SelfPlayEngine(env, cfg, net, device=dev, seed=cfg.program_seed,
+                            use_bf16=dev.type == "cuda")
+    batch = cfg.zero_num_parallel_games
+    collector = TrajectoryCollector(cfg, env.spec, batch, seed=cfg.program_seed)
+    states = engine.init_batch(batch)
+    enable = torch.as_tensor(collector.enable_resign_flags(), device=dev)
+    msr = None
+    scan_moves = max(1, int(cfg.zero_moves_per_dispatch))
+    done = 0
+    out = open(output, "w") if output else sys.stdout
+    try:
+        while done < num_games:
+            stacked, states, enable, msr = engine.move_scan(states, 1.0, scan_moves, enable, msr)
+            for fg in collector.add_scan(stacked):
+                if done >= num_games:
+                    break
+                out.write(serialize_game(env.spec.name, fg.record, env.spec.board_size,
+                                         fg.players) + "\n")
+                done += 1
+    finally:
+        if output:
+            out.close()
+    print(f"wrote {done} games", file=sys.stderr)
+
+
+def _device_for(platform: str):
+    """``-platform``: ``cpu`` runs on the CPU; empty, ``gpu`` or ``cuda``
+    on the card."""
+    if platform == "cpu":
+        return "cpu"
+    if platform in ("", "gpu", "cuda"):
+        return None
+    raise ValueError(f"-platform {platform}: expected cpu, gpu or cuda")
+
+
 def main(argv=None, device=None) -> int:
-    """The CLI; ``device`` (the card by default) is for callers that run the
-    loop on the CPU, as the tests do."""
+    """The CLI; ``device`` (for callers such as the tests) takes the place
+    of ``-platform``."""
     parser = argparse.ArgumentParser(prog="minizero_tpu_torch")
-    parser.add_argument("-mode", default="zero", choices=["zero", *_NOT_PORTED])
+    parser.add_argument("-mode", default="console",
+                        choices=["console", "sp", "zero", "env_test", "zero_training_name",
+                                 "eval", "remove_obs", "recover_obs"])
     parser.add_argument("-conf_file", default="")
     parser.add_argument("-conf_str", default="")
     parser.add_argument("-gen", default="", help="generate an annotated config file and exit")
+    parser.add_argument("-num_games", type=int, default=100)
+    parser.add_argument("-input", default="")
+    parser.add_argument("-output", default="")
     parser.add_argument("-run_dir", default="training_result")
+    parser.add_argument("-run_dir_b", default="",
+                        help="second run dir: eval mode plays the two runs' checkpoints "
+                             "against each other (reference tools/fight-eval.sh)")
+    parser.add_argument("-iteration", default="",
+                        help="checkpoint file name for the cross-run eval (default: latest)")
+    parser.add_argument("-multi_device", action="store_true",
+                        help="zero mode over several cards (not ported yet)")
+    parser.add_argument("-platform", default="", help="cpu, or gpu / cuda (the default)")
     args = parser.parse_args(argv)
+    if device is None:
+        device = _device_for(args.platform)
 
     cfg = build_config(args)
+    if cfg.program_quiet:
+        # silence diagnostic output like the reference's cerr redirect
+        # (console/mode_handler.cpp:61); GTP replies and mode outputs stay
+        # on stdout
+        devnull = open(os.devnull, "w")
+        sys.stderr = devnull
+        atexit.register(devnull.close)
     if args.gen:
         cfg.save_file(args.gen)
         print(f"wrote {args.gen}")
         return 0
-    if args.mode != "zero":
+    if args.multi_device:
+        raise NotImplementedError("-multi_device is not ported yet (ROADMAP.md, A11)")
+    if args.mode in ("remove_obs", "recover_obs"):
         raise NotImplementedError(
-            f"-mode {args.mode} is not ported to minizero_tpu_torch yet (ROADMAP.md, A7)")
-    from minizero_tpu_torch.zero.loop import ZeroLoop
+            f"-mode {args.mode} (tools/obs.py) is not ported yet (ROADMAP.md, A12)")
 
-    loop = ZeroLoop(cfg, args.run_dir, device=device)
-    try:
-        loop.resume()  # continue mode when the run dir has checkpoints
-        loop.run()
-    finally:
-        loop.close()
+    if args.mode == "zero_training_name":
+        print(training_name(cfg))
+    elif args.mode == "env_test":
+        run_env_test(cfg, device)
+    elif args.mode == "console":
+        from minizero_tpu_torch.console.gtp import GTPConsole
+
+        GTPConsole(cfg, device=device).run()
+    elif args.mode == "sp":
+        run_selfplay(cfg, args.num_games, args.output, device)
+    elif args.mode == "eval":
+        from minizero_tpu_torch.eval.match import run_eval_cli
+
+        return run_eval_cli(cfg, args, device)
+    else:
+        from minizero_tpu_torch.zero.loop import ZeroLoop
+
+        loop = ZeroLoop(cfg, args.run_dir, device=device)
+        try:
+            loop.resume()  # continue mode when the run dir has checkpoints
+            loop.run()
+        finally:
+            loop.close()
     return 0
 
 

@@ -24,6 +24,7 @@ from minizero_tpu_torch.search.mcts import (
     _tree_value_bounds,
     _walk,
     empty_selection,
+    mark_duplicates,
     root_children_visits,
 )
 
@@ -124,7 +125,8 @@ def gumbel_select_leaf(spec: SearchSpec, tree: Tree) -> Selection:
     """Root step: the active candidate with the lowest count (ties -> higher
     logit, then lower index); below the chosen child, ordinary PUCT
     (reference GumbelZero::selection, gumbel_zero.cpp:74-88). The path mask
-    holds the root, every node descended through, and the leaf."""
+    holds the root, every node descended through, and the leaf; ``dup`` is
+    set on trees with virtual loss."""
     b = tree.visits.shape[0]
     dev = tree.visits.device
     visits = root_children_visits(tree)
@@ -145,7 +147,8 @@ def gumbel_select_leaf(spec: SearchSpec, tree: Tree) -> Selection:
     sel.leaf = torch.where(stop_leaf, child, -1).to(torch.int32)
     sel.path[:, 0] = True
     sel.path[rows, child.clamp(min=0)] |= stop_leaf
-    return _walk(spec, tree, child.clamp(min=0), stop_new | stop_leaf, sel)
+    sel = _walk(spec, tree, child.clamp(min=0), stop_new | stop_leaf, sel)
+    return mark_duplicates(tree, sel)
 
 
 def decide_action(spec: SearchSpec, tree: Tree) -> torch.Tensor:

@@ -13,8 +13,9 @@ rescaling via tree value bounds, player value flipping, Dirichlet / Gumbel
 root noise, softmax-count action sampling with value threshold.
 
 Differences from the JAX module: node states (the JAX ``Tree.embedding``)
-are kept by the self-play engine beside the tree; the think-batch virtual
-loss (``think_batch > 1``) is not ported yet (ROADMAP.md). The PUCT walk has
+are kept by the self-play engine beside the tree, and the think-batch
+virtual loss (``evloss``, ``nvloss``) exists only on trees of a spec with
+``think_batch > 1`` (``None`` otherwise). The PUCT walk has
 the contract of the fused tree step (``ops/tree_kernel.py``): it starts at an
 expanded node, and a walk that ends on an unexpanded (terminal) child
 reports that child as the leaf and its parent edge as (parent, action).
@@ -28,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -99,12 +100,17 @@ class Tree:
     gumbel_active: torch.Tensor  # bool[B, A]: root actions still candidates
     gumbel_sample_size: torch.Tensor  # i32[B]
     gumbel_budget: torch.Tensor  # f32[B]: per-candidate visit budget this phase
+    # virtual loss of a think-batch round (reference mcts.h:33-47), only
+    # when ``think_batch > 1``: evloss[b, n, a] in-flight selections through
+    # edge (n, a), nvloss[b, n] through node n; zero outside a round
+    evloss: Optional[torch.Tensor] = None  # f32[B, N, A]
+    nvloss: Optional[torch.Tensor] = None  # f32[B, N]
 
     def replace(self, **kw) -> "Tree":
         return dataclasses.replace(self, **kw)
 
     def clone(self) -> "Tree":
-        return Tree(**{f.name: getattr(self, f.name).clone()
+        return Tree(**{f.name: _clone(getattr(self, f.name))
                        for f in dataclasses.fields(self)})
 
 
@@ -117,6 +123,17 @@ class Selection:
     leaf: torch.Tensor  # i32[B]: existing leaf node revisited (-1 if new edge)
     is_new: torch.Tensor  # bool[B]: True -> create a node for (parent, action)
     path: torch.Tensor  # bool[B, N]: root..parent (+ leaf)
+    # think_batch > 1 only: this new edge was already selected in the round
+    # (reference zero_actor.cpp:141-144); None otherwise
+    dup: Optional[torch.Tensor] = None  # bool[B]
+
+    def clone(self) -> "Selection":
+        return Selection(**{f.name: _clone(getattr(self, f.name))
+                            for f in dataclasses.fields(self)})
+
+
+def _clone(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if x is None else x.clone()
 
 
 def _rows(b: int, device) -> torch.Tensor:
@@ -143,6 +160,7 @@ def init_tree(spec: SearchSpec, root_to_play: torch.Tensor) -> Tree:
     f32, i32 = torch.float32, torch.int32
     to_play = torch.zeros((b, n), dtype=i32, device=dev)
     to_play[:, 0] = root_to_play.to(i32)
+    vloss = spec.think_batch > 1
     return Tree(
         visits=torch.zeros((b, n), dtype=f32, device=dev),
         mean=torch.zeros((b, n), dtype=f32, device=dev),
@@ -162,6 +180,8 @@ def init_tree(spec: SearchSpec, root_to_play: torch.Tensor) -> Tree:
         gumbel_active=torch.zeros((b, a), dtype=torch.bool, device=dev),
         gumbel_sample_size=torch.zeros((b,), dtype=i32, device=dev),
         gumbel_budget=torch.zeros((b,), dtype=f32, device=dev),
+        evloss=torch.zeros((b, n, a), dtype=f32, device=dev) if vloss else None,
+        nvloss=torch.zeros((b, n), dtype=f32, device=dev) if vloss else None,
     )
 
 
@@ -236,11 +256,21 @@ def _children_stats(spec: SearchSpec, tree: Tree, node: torch.Tensor):
     edge_player = _take(tree.to_play, node)[:, None]
     q_norm = _normalize_q(spec, c_q_raw, edge_player, _bounds_for(spec, tree, 2))
     q_norm = torch.where(has_child & (c_visits > 0), q_norm, 0.0)
+    if tree.evloss is not None:
+        # virtual-loss dilution (reference mcts.cpp:51): each in-flight
+        # selection counts as a -1 outcome for the edge player; an edge
+        # with only virtual visits scores -1
+        ev = _take(tree.evloss, node)
+        cv = c_visits + ev
+        q_norm = torch.where(cv > 0, (q_norm * c_visits - ev) / torch.clamp(cv, min=1e-8), 0.0)
+        c_visits = cv
     return cidx, has_child, c_visits, q_norm
 
 
 def _puct_scores(spec: SearchSpec, tree: Tree, node: torch.Tensor) -> torch.Tensor:
     """[B, A] PUCT scores of ``node``'s children; illegal actions -> -inf.
+    With virtual loss, a child with only virtual visits counts as visited
+    (reference calculateInitQValue, mcts.cpp:206).
 
     Divisors are tensors, never Python numbers: PyTorch's CUDA division by
     a Python number multiplies by its reciprocal, which rounds differently
@@ -256,6 +286,9 @@ def _puct_scores(spec: SearchSpec, tree: Tree, node: torch.Tensor) -> torch.Tens
     else:
         init_q = (sum_q - 1.0) / (num_visited + 1.0)
     total_sim = _take(tree.visits, node) - 1.0
+    if tree.nvloss is not None:
+        # reference selectChildByPUCTScore: getCountWithVirtualLoss() - 1
+        total_sim = total_sim + _take(tree.nvloss, node)
     base = torch.full_like(total_sim, spec.puct_base)
     puct_bias = spec.puct_init + torch.log((1.0 + total_sim + spec.puct_base) / base)
     prior = _take(tree.prior, node)
@@ -319,6 +352,15 @@ def empty_selection(spec: SearchSpec, batch: int, device) -> Selection:
     )
 
 
+def mark_duplicates(tree: Tree, sel: Selection) -> Selection:
+    """Set ``sel.dup`` on trees with virtual loss: the selected edge
+    already carries a selection of this round."""
+    if tree.evloss is not None:
+        rows = _rows(sel.parent.shape[0], sel.parent.device)
+        sel.dup = tree.evloss[rows, sel.parent.long(), sel.action.long()] > 0
+    return sel
+
+
 def select_leaf(spec: SearchSpec, tree: Tree) -> Selection:
     """PUCT walk from the root (which the engine always expands) with its
     path mask."""
@@ -326,7 +368,63 @@ def select_leaf(spec: SearchSpec, tree: Tree) -> Selection:
     dev = tree.visits.device
     root = torch.zeros((b,), dtype=torch.long, device=dev)
     sel = empty_selection(spec, b, dev)
-    return _walk(spec, tree, root, torch.zeros((b,), dtype=torch.bool, device=dev), sel)
+    sel = _walk(spec, tree, root, torch.zeros((b,), dtype=torch.bool, device=dev), sel)
+    return mark_duplicates(tree, sel)
+
+
+def add_path_vloss(tree: Tree, sel: Selection, enabled: bool = True) -> None:
+    """+1 virtual loss, in place, on the selected edge and on every node
+    and edge from its parent up to the root (reference ZeroActor::step adds
+    it to the whole node path, zero_actor.cpp:145). ``enabled`` False (the
+    short last round's surplus selections) adds nothing."""
+    if not enabled:
+        return
+    b = sel.parent.shape[0]
+    rows = _rows(b, sel.parent.device)
+    node = sel.parent.long()
+    tree.evloss[rows, node, sel.action.long()] += 1.0
+    live = node >= 0
+    while bool(live.any()):
+        safe = node.clamp(min=0)
+        tree.nvloss[rows[live], safe[live]] += 1.0
+        parent = tree.parent[rows, safe].long()
+        up = live & (parent >= 0)
+        tree.evloss[rows[up], parent[up], tree.action_from_parent[rows, safe][up].long()] += 1.0
+        node = torch.where(live, parent, node)
+        live = up
+
+
+def think_batch_backup(spec: SearchSpec, tree: Tree, sel: Selection, enabled: bool, slot: int,
+                       policy: torch.Tensor, policy_logit: torch.Tensor, legal: torch.Tensor,
+                       terminal: torch.Tensor, to_play: torch.Tensor, value: torch.Tensor,
+                       reward: torch.Tensor) -> Tree:
+    """Complete one selection of a think-batch round from its leaf's
+    evaluation (the JAX engine's ``think_batch_round``, engine.py:508-534).
+    The first selection of a new edge in the round creates node ``slot``
+    and backs up the leaf's value; a duplicate of it reaches the node that
+    selection created, and a revisit its existing leaf, and both back up
+    the value stored there. ``enabled`` False (the short last round's
+    surplus) changes nothing. Returns a new Tree."""
+    b = tree.visits.shape[0]
+    rows = _rows(b, tree.visits.device)
+    fresh = sel.is_new & ~sel.dup
+    en = torch.full_like(fresh, bool(enabled))
+    tree = expand_node(spec, tree, slot, sel.parent, sel.action, to_play, policy, policy_logit,
+                       legal, terminal, enabled=fresh & en)
+    known = torch.where(sel.is_new, tree.children_index[rows, sel.parent.long(), sel.action.long()],
+                        sel.leaf)
+    start = torch.where(fresh, int(slot), known.long().clamp(min=0))
+    val = torch.where(fresh, value, tree.value[rows, start])
+    rew = torch.where(fresh, reward, tree.reward[rows, start])
+    return backup(spec, tree, start, val, rew, store_leaf=fresh, enabled=en)
+
+
+def clear_vloss(tree: Tree) -> None:
+    """End of a round: every selection's virtual loss is added and removed
+    within one round (reference zero_actor.cpp:152-156), so the net effect
+    is zeroing, in place."""
+    tree.evloss.zero_()
+    tree.nvloss.zero_()
 
 
 # --------------------------------------------------------------------------
@@ -547,3 +645,31 @@ def is_resign(spec: SearchSpec, tree: Tree, selected_action: torch.Tensor,
     child_q = node_normalized_mean(spec, tree, child.clamp(min=0))
     child_q = torch.where(child >= 0, child_q, 0.0)
     return (-root_q < threshold) & (child_q < threshold)
+
+
+def tree_string(spec: SearchSpec, tree: Tree, action_to_str: Callable[[int], str] = str,
+                game: int = 0) -> str:
+    """SGF-style dump of game ``game``'s search tree (reference
+    ``Tree::getTreeInfo_r``, tree.h:79-110): each visited node emits
+    ``;[move]C[count/mean/value/prior]``, its visited children in
+    parentheses, most visited first. On the host; for the console."""
+    visits = tree.visits[game].cpu().numpy()
+    mean = tree.mean[game].cpu().numpy()
+    value = tree.value[game].cpu().numpy()
+    prior = tree.prior[game].cpu().numpy()
+    ci = tree.children_index[game].cpu().numpy()
+    afp = tree.action_from_parent[game].cpu().numpy()
+    parent = tree.parent[game].cpu().numpy()
+
+    def node_str(n: int) -> str:
+        move = "root" if n == 0 else action_to_str(int(afp[n]))
+        p = prior[parent[n], afp[n]] if n != 0 else 0.0
+        return (f";[{move}]C[count: {visits[n]:.0f}, mean: {mean[n]:.3f}, "
+                f"value: {value[n]:.3f}, prior: {p:.3f}]")
+
+    def rec(n: int) -> str:
+        kids = [int(c) for c in ci[n] if c >= 0 and visits[int(c)] > 0]
+        kids.sort(key=lambda c: -visits[c])
+        return node_str(n) + "".join(f"({rec(c)})" for c in kids)
+
+    return f"({rec(0)})"

@@ -27,7 +27,12 @@ planes. ``move_scan`` plays several moves with the finished-game bookkeeping
 (resign gating, the max-move cap, slot resets) of the JAX scan, as a Python
 loop over moves. ``search_trees`` returns the finished trees of one search.
 
-Still to port (ROADMAP.md): the think-batch loop, the timed console search.
+For the console (``console/gtp.py``), two more ways to search: the
+think-batch rounds (``use_think_batch``: K virtual-loss selections, one
+network forward over the K leaves, on the plain search functions, as the
+JAX engine runs them off its kernel), and the timed search
+(``az_init_timed`` / ``az_advance_timed`` / ``az_finish_timed``), which
+runs the kernel loop's simulations in chunks the caller sizes.
 """
 
 from __future__ import annotations
@@ -121,6 +126,17 @@ class ScanMoves(NamedTuple):
     ended: torch.Tensor  # bool[M, B] — finished by termination this move
 
 
+class TimedSearch(NamedTuple):
+    """An AlphaZero search in flight on the tree-step loop (the JAX timed
+    carry): the trees, the next selection, the node-state buffers and the
+    generator of the search's draws."""
+
+    trees: Tree
+    sel: mcts.Selection
+    nodes: Any
+    generator: torch.Generator
+
+
 class SelfPlayEngine:
     """Batched self-play on one device.
 
@@ -133,27 +149,29 @@ class SelfPlayEngine:
     card; the CPU is used only when asked for. Random draws (root noise,
     feature rotations, action sampling, resign gating) come from
     ``generator`` where a call passes one, else from the engine's own,
-    seeded with ``seed``. ``_force_kernel_v2`` takes the large-N loop at any
-    tree size (tests use it at small n)."""
+    seeded with ``seed``. ``use_think_batch`` searches in rounds of
+    ``actor_mcts_think_batch_size`` selections (the console's leaf
+    batching; the reference allows it only there). ``_force_kernel_v2``
+    takes the large-N loop at any tree size (tests use it at small n)."""
 
     def __init__(self, env: Env, cfg: Config, network: torch.nn.Module,
                  eval_mode: bool = False, use_bf16: bool = True, device=None,
-                 seed: int = 0, _force_kernel_v2: bool = False):
+                 seed: int = 0, use_think_batch: bool = False, _force_kernel_v2: bool = False):
         self.env = env
         self.cfg = cfg
         self.device = resolve_device(device)
         self.network = network.to(self.device).eval()
-        self.spec = search_spec_from_config(cfg, env.spec, eval_mode=eval_mode)
+        think_batch = cfg.actor_mcts_think_batch_size if use_think_batch else 1
+        self.spec = search_spec_from_config(cfg, env.spec, eval_mode=eval_mode,
+                                            think_batch=think_batch)
         self.is_muzero = callable(getattr(network, "recurrent_inference", None))
         if not self.is_muzero and type(env).reward is not Env.reward:
             raise NotImplementedError("envs with in-tree rewards are not ported yet (ROADMAP.md)")
         # large-N plain AlphaZero runs on the node-indexed v2 tree step (O(A)
         # per walk step); small trees (Gumbel n=16) stay on v1, and MuZero
-        # always does
+        # always does; think batches run on neither
         self.use_tree_kernel_v2 = (not self.is_muzero and supports_fused_tree_step_v2(self.spec)
                                    and (self.spec.max_nodes >= 48 or _force_kernel_v2))
-        if not self.use_tree_kernel_v2 and not supports_fused_tree_step(self.spec):
-            raise NotImplementedError("think_batch > 1 is not ported yet (ROADMAP.md)")
         self.use_rotation = (cfg.actor_use_random_rotation_features and not self.is_muzero
                              and env.num_rotations() > 1)
         self.compute_dtype = torch.bfloat16 if use_bf16 else torch.float32
@@ -253,37 +271,132 @@ class SelfPlayEngine:
             torch.zeros((batch,), dtype=torch.float32, device=dev),
             torch.ones((batch,), dtype=torch.int32, device=dev), 0, 0)
 
-    def _kernel_sim_loop(self, trees: Tree, root_states, generator) -> Tree:
-        """Per simulation: the selected parent's state, one env step, the
-        leaf's evaluation, then ONE fused tree step. Node states live in
-        ``[B, N, ...]`` buffers beside the tree (the JAX tree's embedding)."""
-        spec = self.spec
-        batch = trees.visits.shape[0]
-        rows = torch.arange(batch, device=trees.visits.device)
-        trees, sel = self._kernel_phase0(trees)
+    def _node_buffers(self, root_states):
+        """``[B, N, ...]`` node-state buffers beside the tree (the JAX
+        tree's embedding), the root's state at node 0."""
+        n = self.spec.max_nodes
 
         def alloc(x):
-            buf = torch.zeros((batch, spec.max_nodes) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+            buf = torch.zeros((x.shape[0], n) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
             buf[:, 0] = x
             return buf
 
-        nodes = map_state(alloc, root_states)
-        for s in range(1, spec.num_simulations + 1):
-            parent = sel.parent.long()
-            parent_states = map_state(lambda buf: buf[rows, parent], nodes)
-            leaf_states = self.env.step(parent_states, sel.action)
-            leaf_terminal = self.env.is_terminal(leaf_states)
-            policy, logits, net_value = self._forward_features(
-                self.env.features(leaf_states), generator)
-            value = torch.where(leaf_terminal, self._leaf_scores(leaf_states, leaf_terminal), net_value)
-            trees, sel = self.tree_step(
-                spec, trees, sel, policy, logits, self.env.legal_mask(leaf_states),
-                leaf_terminal, value, self.env.turn(leaf_states).to(torch.int32), s, 1)
-            # node s exists only where this simulation created it, so the
-            # unconditional store is safe
-            for f in dataclasses.fields(nodes):
-                getattr(nodes, f.name)[:, s] = getattr(leaf_states, f.name)
+        return map_state(alloc, root_states)
+
+    @staticmethod
+    def _store_nodes(nodes, slot: int, leaf_states) -> None:
+        """Node ``slot``'s state, stored unconditionally: the node exists
+        only where the selection of that slot created it."""
+        for f in dataclasses.fields(nodes):
+            getattr(nodes, f.name)[:, slot] = getattr(leaf_states, f.name)
+
+    def _evaluate_leaves(self, parent_states, actions, generator):
+        """Step each parent state by its action and evaluate the leaf:
+        (leaf states, terminal, policy, logits, value, legal, turn); a
+        terminal leaf's value is its outcome."""
+        env = self.env
+        leaf_states = env.step(parent_states, actions)
+        leaf_terminal = env.is_terminal(leaf_states)
+        policy, logits, net_value = self._forward_features(env.features(leaf_states), generator)
+        value = torch.where(leaf_terminal, self._leaf_scores(leaf_states, leaf_terminal), net_value)
+        return (leaf_states, leaf_terminal, policy, logits, value, env.legal_mask(leaf_states),
+                env.turn(leaf_states).to(torch.int32))
+
+    def _kernel_sim(self, trees: Tree, sel, nodes, s: int, generator):
+        """Simulation ``s`` of the tree-step loop: the selected parent's
+        state, one env step, the leaf's evaluation, then ONE fused tree
+        step; returns (trees, next selection)."""
+        rows = torch.arange(trees.visits.shape[0], device=trees.visits.device)
+        parent = sel.parent.long()
+        leaf_states, terminal, policy, logits, value, legal, turn = self._evaluate_leaves(
+            map_state(lambda buf: buf[rows, parent], nodes), sel.action, generator)
+        trees, sel = self.tree_step(self.spec, trees, sel, policy, logits, legal, terminal,
+                                    value, turn, s, 1)
+        self._store_nodes(nodes, s, leaf_states)
+        return trees, sel
+
+    def _kernel_sim_loop(self, trees: Tree, root_states, generator) -> Tree:
+        """Phase-0 selection, then every simulation on the tree step."""
+        trees, sel = self._kernel_phase0(trees)
+        nodes = self._node_buffers(root_states)
+        for s in range(1, self.spec.num_simulations + 1):
+            trees, sel = self._kernel_sim(trees, sel, nodes, s, generator)
         return trees
+
+    def _think_batch_loop(self, trees: Tree, root_states, generator) -> Tree:
+        """The console's think-batch rounds (JAX ``think_batch_round``,
+        engine.py:461-562; reference ZeroActor::step, zero_actor.cpp:129-157):
+        K selections under virtual loss, ONE network forward over the K x B
+        leaves, then the K selections completed in order
+        (``mcts.think_batch_backup``: node slots ``r*K + j + 1``, duplicates
+        deduplicated), the virtual loss cleared at the round's end. The last
+        round may be short. On the plain search functions, as in the JAX
+        package: lock-step batching is the tree step's domain."""
+        spec, env = self.spec, self.env
+        k, n = spec.think_batch, spec.num_simulations
+        batch = trees.visits.shape[0]
+        rows = torch.arange(batch, device=trees.visits.device).repeat(k)
+        nodes = self._node_buffers(root_states)
+        select = gz.gumbel_select_leaf if spec.use_gumbel else mcts.select_leaf
+        for r in range(-(-n // k)):
+            sels = []
+            for j in range(k):
+                en = r * k + j + 1 <= n
+                sel = select(spec, trees)
+                mcts.add_path_vloss(trees, sel, en)
+                sels.append((sel, en))
+            parents = torch.cat([sel.parent.long() for sel, _ in sels])
+            actions = torch.cat([sel.action for sel, _ in sels])
+            leaf_states, terminal, policy, logits, value, legal, turn = self._evaluate_leaves(
+                map_state(lambda buf: buf[rows, parents], nodes), actions, generator)
+            reward = env.reward(leaf_states)
+            for j, (sel, en) in enumerate(sels):
+                part = slice(j * batch, (j + 1) * batch)
+                slot = r * k + j + 1
+                trees = mcts.think_batch_backup(
+                    spec, trees, sel, en, slot, policy[part], logits[part], legal[part],
+                    terminal[part], turn[part], value[part], reward[part])
+                self._store_nodes(nodes, slot, map_state(lambda x: x[part], leaf_states))
+                if spec.use_gumbel:
+                    trees = gz.sequential_halving_tick(spec, trees)
+            mcts.clear_vloss(trees)
+        return trees
+
+    # ------------------------------------------------ timed (console) search
+    # Wall-clock think cap (reference ZeroActor::think, zero_actor.cpp:36-49;
+    # JAX engine.py:641-697): the console runs the tree-step loop's
+    # simulations in chunks, checks the clock between them, and decides from
+    # whatever the tree holds. AlphaZero on the v1 tree step only.
+
+    def supports_timed_search(self) -> bool:
+        return not self.is_muzero and supports_fused_tree_step(self.spec)
+
+    @torch.no_grad()
+    def az_init_timed(self, states, generator: Optional[torch.Generator] = None) -> TimedSearch:
+        """Root evaluation, the root's expansion and the phase-0 selection."""
+        self._sync_inference_net()
+        env = self.env
+        gen = generator or self.generator
+        trees = self._az_root_trees(env.features(states), env.legal_mask(states),
+                                    env.turn(states), gen)
+        trees, sel = self._kernel_phase0(trees)
+        return TimedSearch(trees, sel, self._node_buffers(states), gen)
+
+    @torch.no_grad()
+    def az_advance_timed(self, carry: TimedSearch, lo: int, hi: int) -> TimedSearch:
+        """Run simulations ``[lo, hi)`` of a search in flight."""
+        trees, sel = carry.trees, carry.sel
+        for s in range(lo, hi):
+            trees, sel = self._kernel_sim(trees, sel, carry.nodes, s, carry.generator)
+        return carry._replace(trees=trees, sel=sel)
+
+    @torch.no_grad()
+    def az_finish_timed(self, carry: TimedSearch, temperature: float = 1.0):
+        """Decide from the (possibly partial) trees: (action, policy
+        target, root value, resign, trees)."""
+        action, policy_target, root_value, resign = self._decide(
+            carry.trees, temperature, carry.generator)
+        return action, policy_target, root_value, resign, carry.trees
 
     def _kernel_sim_loop_v2(self, trees: Tree, root_states, generator) -> Tree:
         """Large-N AlphaZero sim loop on the node-indexed v2 tree step.
@@ -354,6 +467,8 @@ class SelfPlayEngine:
             self._muzero.tree_step = self.tree_step
             return self._muzero.search_trees(feats, self.env.legal_mask(states), turns, generator)
         trees = self._az_root_trees(feats, self.env.legal_mask(states), turns, generator)
+        if self.spec.think_batch > 1:
+            return self._think_batch_loop(trees, states, generator)
         if self.use_tree_kernel_v2:
             return self._kernel_sim_loop_v2(trees, states, generator)
         return self._kernel_sim_loop(trees, states, generator)

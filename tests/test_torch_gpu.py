@@ -26,6 +26,8 @@ def _assert_equal_outputs(got, want, what):
     """Integers and bools exact, floats within 1e-5, field by field."""
     for f in dataclasses.fields(got):
         g, w = getattr(got, f.name), getattr(want, f.name)
+        if g is None and w is None:  # a tree's virtual loss outside think batches
+            continue
         if g.dtype.is_floating_point:
             torch.testing.assert_close(g, w, rtol=0, atol=1e-5, msg=f"{what}: {f.name}")
         else:
@@ -54,14 +56,15 @@ def test_tree_step_kernel_matches_plain_on_card(use_gumbel):
     calls = []
 
     def checked(spec, trees, sel, *rest):
-        ref_sel = dataclasses.replace(sel, **{f.name: getattr(sel, f.name).clone()
-                                              for f in dataclasses.fields(sel)})
+        ref_sel = sel.clone()
         want_t, want_s = tree_step_reference(spec, trees.clone(), ref_sel, *rest)
         before = fused_tree_step.launches
         got_t, got_s = fused_tree_step(spec, trees, sel, *rest)
         assert fused_tree_step.launches == before + 1
         for f in dataclasses.fields(got_t):
             got, want = getattr(got_t, f.name), getattr(want_t, f.name)
+            if got is None and want is None:
+                continue
             if got.dtype.is_floating_point:
                 torch.testing.assert_close(got, want, rtol=0, atol=1e-5, msg=f.name)
             else:
@@ -260,8 +263,7 @@ def _reward_regime_steps(spec, b, seed, make_leaf, reward_scale=1.0, dev="cuda",
             reward = (torch.rand((b,), generator=g, device=dev) * 2.0 - 1.0) * reward_scale
         phase = 0 if sim == 0 else 1
         args = (policy, logit, ones, no_term, value, turns, sim, phase)
-        ref_sel = dataclasses.replace(sel, **{f.name: getattr(sel, f.name).clone()
-                                              for f in dataclasses.fields(sel)})
+        ref_sel = sel.clone()
         want_t, want_s = tree_step_reference(spec, trees.clone(), ref_sel, *args,
                                              leaf_reward=reward)
         counter = "launches_rewards" if uses_reward_regime(spec, reward) else "launches"
@@ -390,8 +392,7 @@ def test_muzero_searches_match_plain_on_card():
     steps = []
 
     def checked(spec, trees, sel, *rest, leaf_reward=None):
-        ref_sel = dataclasses.replace(sel, **{f.name: getattr(sel, f.name).clone()
-                                              for f in dataclasses.fields(sel)})
+        ref_sel = sel.clone()
         want_t, want_s = tree_step_reference(spec, trees.clone(), ref_sel, *rest,
                                              leaf_reward=leaf_reward)
         got_t, got_s = fused_tree_step(spec, trees, sel, *rest, leaf_reward=leaf_reward)
@@ -798,6 +799,118 @@ def test_native_codec_builds_and_loads_on_the_card_machine():
                 == serialize_game("go_9x9", rec, 9, model_file="weight_iter_0", plain=True))
 
 
+# ---------------------------------------------------------------------------
+# the console and eval paths on the card: B1 at B=1, the timed search, a
+# small match, each against the plain version or the CPU
+# ---------------------------------------------------------------------------
+
+def _integer_net(spec, seed):
+    """``chip_smoke.integer_net``: integer weights, so the card and the CPU
+    evaluate it alike (up to ~1 ulp in the softmax)."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    return chip_smoke.integer_net(spec, seed)
+
+
+def _console_cfg(**over):
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+
+    base = dict(algorithm_preset("gaz"))
+    base.update(actor_use_gumbel_noise=False, actor_use_dirichlet_noise=False,
+                actor_use_random_rotation_features=False, actor_select_action_by_count=True)
+    base.update(over)
+    return default_config("go", **base)
+
+
+@pytest.mark.gpu
+def test_console_genmove_at_batch_one_matches_plain_on_card():
+    """Every tree step of one console ``genmove`` (B=1, Go 9x9 gaz n=16,
+    float32) by the kernel and the plain version from the same state, and
+    the move equal to the CPU console's."""
+    _need_card()
+    from minizero_tpu_torch.console.gtp import ConsoleActor
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.ops.tree_kernel import fused_tree_step, tree_step_reference
+
+    cfg = _console_cfg()
+    spec = make_env(cfg).spec
+    card = ConsoleActor(cfg, network=_integer_net(spec, 3))
+    cpu = ConsoleActor(cfg, network=_integer_net(spec, 3), device="cpu")
+    assert card.device.type == "cuda"
+    steps = []
+
+    def checked(spec, trees, sel, *rest):
+        want_t, want_s = tree_step_reference(spec, trees.clone(), sel.clone(), *rest)
+        got_t, got_s = fused_tree_step(spec, trees, sel, *rest)
+        _assert_equal_outputs(got_t, want_t, f"sim {rest[-2]}")
+        _assert_equal_outputs(got_s, want_s, f"sim {rest[-2]}")
+        steps.append(rest[-2])
+        return got_t, got_s
+
+    card.engine.tree_step = checked
+    for a in (40, 30):
+        assert card.act(a) and cpu.act(a)
+    before = fused_tree_step.launches
+    action, _ = card.think()
+    torch.cuda.synchronize()
+    assert steps == list(range(17)) and fused_tree_step.launches == before + 17
+    assert action == cpu.think()[0]
+
+
+@pytest.mark.gpu
+def test_timed_search_on_card_matches_cpu():
+    """6 of 16 simulations, then the rest, on the card and on the CPU from
+    the same positions: visits equal at both points."""
+    _need_card()
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
+
+    cfg = _console_cfg()
+    env = make_env(cfg)
+    card = SelfPlayEngine(env, cfg, _integer_net(env.spec, 4), use_bf16=False, device="cuda")
+    cpu = SelfPlayEngine(env, cfg, _integer_net(env.spec, 4), use_bf16=False, device="cpu")
+    gs, cs = card.init_batch(8), cpu.init_batch(8)
+    rng = np.random.default_rng(1)
+    for _ in range(6):
+        legal = env.legal_mask(cs).numpy()
+        a = torch.from_numpy((rng.random(legal.shape) * legal).argmax(-1).astype(np.int32))
+        gs, cs = env.step(gs, a.cuda()), env.step(cs, a)
+    gcarry, ccarry = card.az_init_timed(gs), cpu.az_init_timed(cs)
+    for lo, hi in ((1, 7), (7, 17)):
+        gcarry, ccarry = card.az_advance_timed(gcarry, lo, hi), cpu.az_advance_timed(ccarry, lo, hi)
+        ga, *_, gt = card.az_finish_timed(gcarry)
+        ca, *_, ct = cpu.az_finish_timed(ccarry)
+        assert torch.equal(gt.visits.cpu(), ct.visits) and torch.equal(ga.cpu(), ca)
+        assert (ct.visits[:, 0] == hi).all()
+
+
+@pytest.mark.gpu
+def test_eval_match_on_card_matches_cpu(monkeypatch):
+    """A small synchronized match (Go 9x9 gaz n=16, 8 games at B=4, a
+    40-move cap, float32) gives the same result on the card and the CPU."""
+    _need_card()
+    import functools
+
+    import minizero_tpu_torch.eval.match as tmatch
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
+
+    monkeypatch.setattr(tmatch, "SelfPlayEngine",
+                        functools.partial(tmatch.SelfPlayEngine, use_bf16=False))
+    cfg = _console_cfg(zero_num_parallel_games=4)
+    spec = make_env(cfg).spec
+    results = []
+    for device in ("cuda", "cpu"):
+        before = fused_tree_step.launches
+        r = tmatch.play_match(cfg, _integer_net(spec, 5), _integer_net(spec, 6), num_games=8,
+                              seed=0, max_moves=40, opening_random_plies=0, device=device)
+        results.append((r.p1_wins, r.p2_wins, r.draws))
+        launched = fused_tree_step.launches - before
+        assert (launched > 0) == (device == "cuda") and launched % (17 * 16) == 0
+    assert results[0] == results[1] and sum(results[0]) == 8
+
+
 def test_port_and_chip_smoke_import_without_jax():
     """``minizero_tpu_torch`` (every module, the MuZero ones by name) and
     ``chip_smoke`` import with jax, flax, msgpack and the JAX package
@@ -813,7 +926,10 @@ def test_port_and_chip_smoke_import_without_jax():
         "assert {'minizero_tpu_torch.models.muzero', 'minizero_tpu_torch.selfplay.muzero_search',",
         "        'minizero_tpu_torch.envs.atari', 'minizero_tpu_torch.weights',",
         "        'minizero_tpu_torch.search.decide', 'minizero_tpu_torch.zero.loop',",
-        "        'minizero_tpu_torch.learner.train', 'minizero_tpu_torch.native'} <= set(names), names",
+        "        'minizero_tpu_torch.learner.train', 'minizero_tpu_torch.native',",
+        "        'minizero_tpu_torch.eval.match', 'minizero_tpu_torch.console.gtp',",
+        "        'minizero_tpu_torch.utils.progress', 'minizero_tpu_torch.utils.color_message',",
+        "        'minizero_tpu_torch.__main__'} <= set(names), names",
         "import chip_smoke",
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'minizero_tpu') and sys.modules[k] is not None",
         "               for k in list(sys.modules))",
@@ -832,3 +948,23 @@ def test_entry_points_raise_without_a_card():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device()
+    # the console's actor and the eval match: the card by default, the CPU
+    # only when asked for
+    from minizero_tpu_torch.config import default_config
+    from minizero_tpu_torch.console.gtp import ConsoleActor
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.eval.match import play_match
+    from minizero_tpu_torch.models.factory import create_network
+
+    cfg = default_config("tictactoe", nn_num_hidden_channels=8, nn_num_value_hidden_channels=8,
+                         actor_num_simulation=2, zero_num_parallel_games=2)
+    net = create_network(cfg, make_env(cfg).spec)
+    assert ConsoleActor(cfg, network=net, device="cpu").states.board.device.type == "cpu"
+    assert play_match(cfg, net, net, num_games=2, device="cpu").games == 2
+    if torch.cuda.is_available():
+        assert ConsoleActor(cfg, network=net).states.board.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ConsoleActor(cfg, network=net)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            play_match(cfg, net, net, num_games=2)

@@ -13,6 +13,7 @@ recorded, exactly. The env comparison is exact (integers and 0/1 planes).
 
 import json
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +28,9 @@ from minizero_tpu_torch.config import algorithm_preset, default_config
 from minizero_tpu_torch.envs import make_env
 from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
 from minizero_tpu_torch.zero.loop import ZeroLoop, per_beta_for_iteration, temperature_for_iteration
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def tiny_cfg(**overrides):
@@ -191,8 +195,8 @@ def test_cli_zero_mode_runs_and_continues(tmp_path, capsys):
     gen = str(tmp_path / "gen.cfg")
     assert main(["-gen", gen, "-conf_str", conf]) == 0
     assert "env_name=tictactoe" in open(gen).read()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A7"):
-        main(["-mode", "console", "-conf_str", conf])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, A12"):
+        main(["-mode", "remove_obs", "-conf_str", conf])
 
 
 def test_the_card_is_the_default(tmp_path):
