@@ -6,8 +6,9 @@ Drives the port's self-play and search paths (``minizero_tpu_torch``) at
 full width, with 1 x 256 nets made from a seed and bf16 inference, then one
 whole zero iteration (self-play, records, replay, SGD, checkpoint) of the
 flagship and of Gumbel MuZero, then the flagship run's eval match, GTP
-console and the other CLI modes, and holds every CUDA kernel of them
-against its plain PyTorch version on the card:
+console and the other CLI modes, then the tree steps past 384 actions and
+the families Othello, NoGo, Kill-All-Go, Clobber, Gomoku and Hex, and holds
+every CUDA kernel of them against its plain PyTorch version on the card:
 
 - the flagship Go 9x9 Gumbel AlphaZero path, n=16, 1024 games (tree step
   B1, ``csrc/tree_step.cu``, board regime);
@@ -63,6 +64,22 @@ Phases:
      process with B1 at B=1 beside its plain version, and B1's time there;
      7c ``-mode sp`` (128 records at B=1024, parsed back), ``-mode
      env_test`` on Go 9x9 and ``-mode zero_training_name``, each timed.
+  8. past 384 actions, and six more env families: 8a B1 in the
+     board and the reward regime and B2 on synthetic searches at A = 385,
+     801 and 3040 and N (capacity) = 17 and 201 (B=1024; B=256 where a tree
+     would pass 4 GB), every step of an N=17 search and six of an N=201 one
+     beside the plain version, each timed beside its bound; 8b Othello
+     (gaz n=16, the trained ``runs/oth8_gaz_r5`` net of
+     ``minizero_tpu_torch/assets/``): one move checked, ``move_scan`` of 8
+     moves, one zero iteration through ``ZeroLoop.run`` (1024 games, 500
+     SGD steps at batch 1024, from a seeded init) and ``-mode eval`` of the
+     trained net against a seeded init (1024 games at B=1024), which it
+     must win; 8c NoGo 9x9 and Kill-All-Go 7x7 with the seki table, 8d
+     Clobber 10x10 (gaz n=16 on B1's wide kernel at A=400; az n=50 on B2's
+     wide kernel and B3, 4 moves), 8e Gomoku 15x15 and Hex 11x11: gaz n=16
+     at B=1024 from seeded 1 x 256 nets, one move with every launch beside
+     its plain version, then 8 moves of ``move_scan`` with exact launch
+     counts and every action legal.
 
 Prints one progress line per phase, then a JSON line of kernel numbers, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -281,9 +298,11 @@ def tree_step_work(kept, nsel, trees_after):
     if rewards:
         byts += b * 4 + new * 4           # leaf rewards in, the new nodes' rewards out
         byts += path_nodes * 4            # the serial backup follows the parent pointers
-    # root statistics (children_index, logit, legal, gumbel_active; gumbel state)
-    root_children = int(children_of(root).sum())
-    byts += b * a * 10 + b * 16
+    # the Gumbel root step's row (children_index, logit, legal, gumbel_active)
+    # and its state; a PUCT root is a walked node, counted with them below
+    root_children = int(children_of(root).sum()) if spec.use_gumbel else 0
+    if spec.use_gumbel:
+        byts += b * a * 10 + b * 16
     halved = int((trees_after.gumbel_sample_size != trees.gumbel_sample_size).sum())
     byts += halved * a
     # PUCT rows (children_index, prior, legal) of the nodes walked through
@@ -291,7 +310,7 @@ def tree_step_work(kept, nsel, trees_after):
     walked = int(walked.sum())
     byts += walked * a * 9
     byts += b * (4 * 3 + 1 + n)           # selection out
-    flops = walked * a * 12 + halved * a * a * 3 + b * a * 6
+    flops = walked * a * 12 + halved * a * a * 3 + (b * a * 6 if spec.use_gumbel else 0)
     if rewards:  # q = reward + discount * mean at each child read
         flops += (children + root_children) * 2 + path_nodes * 2
     if spec.value_rescale:  # the bounds over the visited nodes, and each child's rescale
@@ -357,13 +376,14 @@ def warm_selection_ms(kept, reps: int = 20) -> float:
     return time_events(lambda i: fused_tree_step_v2(spec, one, sel, *leaf, idx, 0), reps)
 
 
-def tree_step_numbers(kept):
+def tree_step_numbers(kept, reps: int = 20):
     """(kernel ms, plain ms, bound ms, bound_by, bytes, flops, deepest next
-    path in nodes) of the CUDA tree step at the kept state."""
+    path in nodes) of the CUDA tree step at the kept state; the kernel
+    timed over ``reps`` fresh copies of it."""
     from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
 
-    k_ms = time_kernel(kept)
-    p_ms = time_plain(kept)
+    k_ms = time_kernel(kept, reps)
+    p_ms = time_plain(kept, min(5, reps))
     spec, trees, sel, leaf, idx, phase, reward = kept
     after = trees.clone()
     _, nsel = fused_tree_step(spec, after, sel, *leaf, idx, phase, leaf_reward=reward)
@@ -571,12 +591,13 @@ def time_tree_step_v2(kept, reps: int = 20):
     return k_ms, p_ms
 
 
-def tree_step_v2_numbers(kept):
+def tree_step_v2_numbers(kept, reps: int = 20):
     """(kernel ms, plain ms, bound ms, bound_by, bytes, flops, deepest next
-    path in nodes) of the CUDA v2 tree step at the kept state."""
+    path in nodes) of the CUDA v2 tree step at the kept state; the kernel
+    timed over ``reps`` fresh copies of it."""
     from minizero_tpu_torch.ops.tree_kernel_v2 import fused_tree_step_v2
 
-    k_ms, p_ms = time_tree_step_v2(kept)
+    k_ms, p_ms = time_tree_step_v2(kept, reps)
     spec, packed, sel, leaf, idx, phase = kept
     after = packed.clone()
     _, nsel = fused_tree_step_v2(spec, after, sel, *leaf, idx, phase)
@@ -887,9 +908,10 @@ def same_tensors(a, b) -> bool:
 
 
 def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int = 0,
-                   run_dir: str = "") -> dict:
+                   run_dir: str = "", env_name: str = "go") -> dict:
     """One iteration of the zero loop at the flagship's widths: ``ZeroLoop``
-    on the card (``algorithm_preset(algo)``, Go 9x9, 1 x 256, 1024 games in
+    on the card (``algorithm_preset(algo)``, ``env_name`` (Go 9x9 by
+    default) at its default size, 1 x 256, 1024 games in
     lock-step, 500 SGD steps at batch 1024), ``run()`` from a seeded random
     init in a temporary run directory. The first ``move_scan`` chunk runs
     every tree step beside its plain version; every launch counter is 0
@@ -911,8 +933,8 @@ def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int =
     over.update(zero_num_parallel_games=BATCH, zero_num_games_per_iteration=ZERO_GAMES,
                 learner_batch_size=ZERO_BATCH, learner_training_step=ZERO_STEPS,
                 zero_end_iteration=1, program_seed=seed)
-    cfg = default_config("go", **over)
-    what = f"zero iteration ({algo})"
+    cfg = default_config(env_name, **over)
+    what = f"zero iteration ({env_name} {algo})"
     out = {}
     place = (contextlib.nullcontext(run_dir) if run_dir
              else tempfile.TemporaryDirectory(prefix=f"zero_{algo}_"))
@@ -1339,6 +1361,373 @@ def other_modes_phase(run_dir: str, cfg_path: str, zero_counts, counts) -> dict:
             "env_s": env_s, "name": name.strip(), "name_s": name_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the tree steps past 384 actions, and the families Othello (with
+# its trained net), NoGo, Kill-All-Go, Clobber, Gomoku and Hex at full width
+# ---------------------------------------------------------------------------
+
+# 8a: synthetic searches at these action counts and node counts; a shape
+# whose [B, N, A] tree would pass 4 GB runs at B = WIDE_SMALL_BATCH (A=3040,
+# N=201: 8 GB a tree at B=1024); an N=17 search is held against the plain
+# version at every step, an N=201 one at WIDE_CHECKED_STEPS
+WIDE_ACTIONS = (385, 801, 3040)
+WIDE_NODES = (17, 201)
+WIDE_TREE_BYTES = 4 << 30
+WIDE_SMALL_BATCH = 256
+WIDE_CHECKED_STEPS = (0, 1, 2, 100, 199, 200)
+FAMILY_MOVES = 8
+CLOBBER_AZ_SIMS = 50
+CLOBBER_AZ_MOVES = 4
+OTHELLO_NPZ = os.path.join("minizero_tpu_torch", "assets", "oth8_gaz_r5_iter60000.npz")
+OTHELLO_TRAINED_STEP = 60000
+
+
+def _tree_bytes(x) -> int:
+    return sum(getattr(x, f.name).numel() * getattr(x, f.name).element_size()
+               for f in dataclasses.fields(x) if getattr(x, f.name) is not None)
+
+
+def _timing_reps(x) -> int:
+    """Fresh copies a kernel timing can afford for a tree of this size."""
+    return max(3, min(20, int((6 << 30) // max(_tree_bytes(x), 1))))
+
+
+def wide_batch(a: int, n: int) -> int:
+    return BATCH if BATCH * n * a * 13 <= WIDE_TREE_BYTES else WIDE_SMALL_BATCH
+
+
+def wide_b1_case(a: int, n: int, regime: str, seed: int, zero_counts, counts) -> dict:
+    """A search of ``n - 1`` simulations at ``a`` actions on random leaves,
+    every step on the tree step's wide kernel (B1), the checked steps
+    beside the plain version: the board regime with the Gumbel root (m=16),
+    or the reward regime with PUCT, leaf rewards, discount 0.997 and value
+    rescale. Returns the case's numbers."""
+    from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
+    from minizero_tpu_torch.search import gumbel as gz
+    from minizero_tpu_torch.search import mcts
+
+    board = regime == "board"
+    b, sims = wide_batch(a, n), n - 1
+    spec = mcts.SearchSpec(action_size=a, num_simulations=sims, use_gumbel=board,
+                           use_gumbel_noise=False, use_dirichlet_noise=False,
+                           gumbel_sample_size=16, flip_player2_value=board,
+                           discount=1.0 if board else 0.997, value_rescale=not board,
+                           init_q_average=not board)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def leaf():
+        logit = torch.randn((b, a), generator=g, device="cuda") * 2.0
+        value = torch.rand((b,), generator=g, device="cuda") * 2.0 - 1.0
+        return torch.softmax(logit, -1), logit, value
+
+    turns = torch.ones((b,), dtype=torch.int32, device="cuda")
+    zeros = torch.zeros((b,), dtype=torch.int32, device="cuda")
+    legal = torch.ones((b, a), dtype=torch.bool, device="cuda")
+    no_term = torch.zeros((b,), dtype=torch.bool, device="cuda")
+    policy, logit, value = leaf()
+    trees = mcts.init_tree(spec, turns)
+    trees = mcts.expand_node(spec, trees, 0, zeros - 1, zeros, turns, policy, logit, legal, no_term)
+    trees = mcts.backup(spec, trees, zeros, value, torch.zeros_like(value))
+    if board:
+        trees = gz.init_candidates(spec, trees)
+    sel = mcts.empty_selection(spec, b, "cuda")
+    checked = set(range(n)) if n <= 17 else set(WIDE_CHECKED_STEPS)
+    check = TreeStepCheck(keep_sim=sims // 2 if n <= 17 else 100)
+    torch.cuda.synchronize()
+    zero_counts()
+    for sim in range(n):
+        policy, logit, value = leaf()
+        reward = None if board or sim == 0 else torch.rand((b,), generator=g, device="cuda") - 0.5
+        step = check if sim in checked else fused_tree_step
+        trees, sel = step(spec, trees, sel, policy, logit, legal, no_term, value, turns, sim,
+                          0 if sim == 0 else 1, leaf_reward=reward)
+    torch.cuda.synchronize()
+    launches = counts()
+    key = "tree_step" if board else "tree_step_rewards"
+    if launches[key] != n or sum(launches.values()) != n or check.calls != len(checked):
+        fail(f"8a B1 A={a} N={n} {regime}: launches {launches}, {check.calls} checked")
+    k_ms, p_ms, bound, bound_by, byts, _, depth = tree_step_numbers(check.kept,
+                                                                    _timing_reps(check.kept[1]))
+    del trees, sel
+    return {"name": f"tree_step_wide A={a} N={n} {regime}", "kernel": key, "batch": b,
+            "launches": n, "checked": check.calls, "err": check.max_abs_err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by, "bytes": byts,
+            "depth": depth}
+
+
+def wide_b2_case(a: int, n: int, seed: int, zero_counts, counts) -> dict:
+    """A staged v2 search (capacity 65 -> 129 -> 201, or one stage below 65)
+    of ``n - 1`` simulations at ``a`` actions on random leaves, a third of
+    them terminal, every step on B2's wide kernel, the checked steps beside
+    the plain version."""
+    from minizero_tpu_torch.ops import tree_kernel_v2 as tv2
+    from minizero_tpu_torch.search import mcts
+
+    b, sims = wide_batch(a, n), n - 1
+    spec = mcts.SearchSpec(action_size=a, num_simulations=sims, use_gumbel=False,
+                           flip_player2_value=True, init_q_average=False)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def leaf():
+        policy = torch.softmax(torch.randn((b, a), generator=g, device="cuda") * 3.0, -1)
+        legal = torch.rand((b, a), generator=g, device="cuda") < 0.9
+        legal[:, 0] = True
+        terminal = torch.rand((b,), generator=g, device="cuda") < 0.3
+        value = torch.rand((b,), generator=g, device="cuda") * 2.0 - 1.0
+        turn = (1 + (torch.rand((b,), generator=g, device="cuda") < 0.5)).to(torch.int32)
+        return policy, legal.contiguous(), terminal, value, turn
+
+    policy, legal, _, value, _ = leaf()
+    turns = torch.ones((b,), dtype=torch.int32, device="cuda")
+    zeros = torch.zeros((b,), dtype=torch.int32, device="cuda")
+    trees = mcts.init_tree(spec, turns)
+    trees = mcts.expand_node(spec, trees, 0, zeros - 1, zeros, turns, policy, policy.log(), legal,
+                             torch.zeros((b,), dtype=torch.bool, device="cuda"))
+    trees = mcts.backup(spec, trees, zeros, value, torch.zeros_like(value))
+    caps, c = [], 65
+    while c < n:
+        caps.append(c)
+        c = (c - 1) * 2 + 1
+    caps.append(n)
+    packed = tv2.pack_trees(spec, trees, caps[0])
+    sel = tv2.empty_selection_v2(spec, b, caps[0], "cuda")
+    checked = set(range(n)) if n <= 17 else set(WIDE_CHECKED_STEPS)
+    keep = sims // 2 if n <= 17 else 100
+    check = TreeStepV2Check(keep_sims=[keep], check_sims=checked)
+    torch.cuda.synchronize()
+    zero_counts()
+    cap_i = 0
+    for sim in range(n):
+        if sim >= caps[cap_i]:
+            cap_i += 1
+            packed = tv2.grow(packed, caps[cap_i])
+            pad = torch.zeros((b, caps[cap_i] - sel.path.shape[1]), dtype=torch.bool, device="cuda")
+            sel.path = torch.cat([sel.path, pad], dim=1)
+        packed, sel = check(spec, packed, sel, *leaf(), sim, 0 if sim == 0 else 1)
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches["tree_step_v2"] != n or sum(launches.values()) != n or check.calls != len(checked):
+        fail(f"8a B2 A={a} N={n}: launches {launches}, {check.calls} checked")
+    kept = check.kept[keep]
+    k_ms, p_ms, bound, bound_by, byts, _, depth = tree_step_v2_numbers(kept, _timing_reps(kept[1]))
+    del packed, sel, trees
+    return {"name": f"tree_step_v2_wide A={a} cap={n}", "kernel": "tree_step_v2", "batch": b,
+            "launches": n, "checked": check.calls, "err": check.max_abs_err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by, "bytes": byts,
+            "depth": depth}
+
+
+def family_path(env_name: str, algo: str, over: dict, moves: int, seed: int, zero_counts, counts,
+                state_dict=None) -> dict:
+    """A family's self-play at full width (1 x 256, bf16, B=1024, a net
+    from ``seed`` or ``state_dict``): one move with every tree step (and on
+    the large-N loop every row gather) beside its plain version, one
+    warm-up move, then ``move_scan`` of ``moves`` moves with every launch
+    counter 0 just before and read just after, each action's legality,
+    ms/move and env-steps/s; the tree step's time at the kept state."""
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.models.factory import create_network, init_network
+    from minizero_tpu_torch.ops.gather_rows import gather_rows
+    from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
+    from minizero_tpu_torch.ops.tree_kernel_v2 import fused_tree_step_v2
+    from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
+
+    cfg = default_config(env_name, **{**dict(algorithm_preset(algo)), **over})
+    env = make_env(cfg)
+    net = create_network(cfg, env.spec)
+    if state_dict is None:
+        init_network(net, seed=seed)
+    else:
+        net.load_state_dict(state_dict)
+    engine = SelfPlayEngine(env, cfg, net, use_bf16=True, device="cuda", seed=seed)
+    spec = engine.spec
+    n = spec.num_simulations
+    what = f"{env_name} {algo} n={n}"
+    v2 = engine.use_tree_kernel_v2
+    if v2:
+        check, gcheck = TreeStepV2Check(keep_sims=[n // 2]), GatherCheck(keep_call=n // 2 - 1)
+        engine.tree_step_v2, engine.gather_rows = check, gcheck
+    else:
+        check, gcheck = TreeStepCheck(keep_sim=n // 2), None
+        engine.tree_step = check
+    t = time.perf_counter()
+    out = engine.move(engine.init_batch(BATCH))
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t
+    engine.tree_step, engine.tree_step_v2, engine.gather_rows = (fused_tree_step,
+                                                                 fused_tree_step_v2, gather_rows)
+    if check.calls != n + 1 or check.reward_calls or (gcheck and gcheck.calls != n):
+        fail(f"{what}: {check.calls} tree steps checked in a move")
+    warm = engine.move(out.states)
+    torch.cuda.synchronize()
+    if hasattr(env, "benson_checks"):
+        env.benson_checks = 0  # Kill-All-Go's host checks of Benson's fixpoint
+    zero_counts()
+    t = time.perf_counter()
+    scan, end_states, _, _ = engine.move_scan(warm.states, num_moves=moves)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t
+    launches = counts()
+    if v2:
+        want = {"tree_step": 0, "tree_step_rewards": 0, "tree_step_v2": moves * (n + 1),
+                "gather_rows": moves * n, "gather_rows_aligned": moves * n}
+    else:
+        want = {"tree_step": moves * (n + 1), "tree_step_rewards": 0, "tree_step_v2": 0,
+                "gather_rows": 0, "gather_rows_aligned": 0}
+    if launches != want:
+        fail(f"{what}: launches {launches}, expected {want}")
+    check_scan(engine, warm.states, scan, end_states, moves, what)
+    res = {"what": what, "moves": moves, "A": spec.action_size, "N": spec.max_nodes,
+           "host_checks": getattr(env, "benson_checks", None),
+           "ms_per_move": 1e3 * elapsed / moves, "steps_per_s": BATCH * moves / elapsed,
+           "launches": launches, "checked": check.calls, "err": check.max_abs_err,
+           "check_s": check_s, "finished": int((scan.resigned | scan.ended).sum()),
+           "cfg": cfg}
+    if v2:
+        kept = check.kept[n // 2]
+        res["b2"] = tree_step_v2_numbers(kept, _timing_reps(kept[1]))
+        res["b3_checked"], res["b3_err"] = gcheck.calls, gcheck.max_abs_err
+        blob = engine._blob
+        idx = gcheck.kept_idx
+        from minizero_tpu_torch.ops.gather_rows import gather_rows_reference
+
+        rows_idx = torch.arange(BATCH, device="cuda")
+        k3 = time_events(lambda i: gather_rows(blob, idx), 50)
+        p3 = time_events(lambda i: gather_rows_reference(blob, idx), 20, hold=False)
+        l3 = time_events(lambda i: blob[rows_idx, idx.long()], 50)
+        byts = BATCH * blob.shape[2] * 4 * 2 + BATCH * 4
+        res["b3"] = (k3, p3, byts / HBM_BYTES_PER_S * 1e3, l3, blob.shape[2])
+    else:
+        res["b1"] = tree_step_numbers(check.kept, _timing_reps(check.kept[1]))
+    del engine, net
+    torch.cuda.empty_cache()
+    return res
+
+
+def family_line(r: dict) -> str:
+    line = (f"{r['what']} (A={r['A']}, N={r['N']}, 1x256 bf16, B={BATCH}): first move's "
+            f"{r['checked']} tree steps equal to the plain version (max |diff| {r['err']:.3g}; "
+            f"{r['check_s']:.2f} s); move_scan {r['moves']} "
+            f"moves: {r['ms_per_move']:.1f} ms/move, {r['steps_per_s']:.1f} env-steps/s, "
+            f"launches {r['launches']}, all actions legal, {r['finished']} games finished")
+    if "b1" in r:
+        k, p, bound, by, byts, _, depth = r["b1"]
+        line += (f"; B1 {k:.5f} ms, plain {p:.3f} ms, bound {bound:.6f} ms ({by}, {byts} bytes), "
+                 f"deepest walk {depth}")
+    else:
+        k, p, bound, by, byts, _, depth = r["b2"]
+        k3, p3, b3, l3, width = r["b3"]
+        line += (f"; B2 {k:.4f} ms, plain {p:.2f} ms, bound {bound:.6f} ms ({by}), deepest walk "
+                 f"{depth}; B3 ({r['b3_checked']} gathers equal, {width}-word rows) {k3:.5f} ms, "
+                 f"plain {p3:.4f} ms, x[arange(B), idx] {l3:.5f} ms, bound {b3:.6f} ms")
+    return line
+
+
+def othello_eval(cfg, trained: dict, zero_counts, counts) -> dict:
+    """``-mode eval`` of the trained Othello net against a seeded random
+    init: a run directory holding the init as ``weight_iter_0`` and the
+    trained weights as ``weight_iter_60000`` (``ZeroLoop`` checkpoints),
+    EVAL_GAMES games at B=1024; launch counters 0 just before and read just
+    after."""
+    from minizero_tpu_torch.zero.loop import ZeroLoop
+
+    with tempfile.TemporaryDirectory(prefix="oth8_eval_") as run_dir:
+        loop = ZeroLoop(cfg.replace(program_seed=21), run_dir)
+        loop.save_checkpoint()
+        loop.network.load_state_dict(trained)
+        loop.state.step = OTHELLO_TRAINED_STEP
+        loop.save_checkpoint()
+        loop.close()
+        del loop
+        cfg_path = os.path.join(run_dir, "oth8.cfg")
+        cfg.save_file(cfg_path)
+        zero_counts()
+        text, seconds = run_cli(["-mode", "eval", "-run_dir", run_dir, "-conf_file", cfg_path,
+                                 "-num_games", str(EVAL_GAMES)])
+        launches = counts()
+        b1 = launches.pop("tree_step")
+        sims = cfg.actor_num_simulation
+        if b1 == 0 or b1 % ((sims + 1) * EVAL_PLIES_PER_CHECK) or any(launches.values()):
+            fail(f"othello eval: {b1} B1 launches, others {launches}")
+        rows = open(os.path.join(run_dir, "eval.csv")).read().splitlines()
+        cells = dict(zip(rows[0].split(","), rows[1].split(","))) if len(rows) == 2 else {}
+        wld = tuple(int(cells.get(k, -1)) for k in ("wins", "losses", "draws"))
+        if sum(wld) != EVAL_GAMES or cells.get("new") != f"weight_iter_{OTHELLO_TRAINED_STEP}.ckpt":
+            fail(f"othello eval: eval.csv holds {rows}")
+    return {"line": text.strip(), "seconds": seconds, "plies": b1 // (sims + 1), "launches": b1,
+            "wld": wld, "elo": float(cells["elo"])}
+
+
+def phase8(zero_counts, counts) -> dict:
+    """Phase 8 (see the module's docstring); returns the kernel rows and the
+    paths' numbers."""
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.models.factory import create_network
+    from minizero_tpu_torch.weights import from_jax_variables, load_variables_npz
+
+    out = {"rows": [], "paths": {}}
+    # ---- 8a. the wide kernels on synthetic trees ----------------------------
+    for a in WIDE_ACTIONS:
+        for n in WIDE_NODES:
+            t = time.perf_counter()
+            for case in (wide_b1_case(a, n, "board", 30 + a + n, zero_counts, counts),
+                         wide_b1_case(a, n, "reward", 31 + a + n, zero_counts, counts),
+                         wide_b2_case(a, n, 32 + a + n, zero_counts, counts)):
+                out["rows"].append(case)
+                log(f"phase 8a {case['name']} (B={case['batch']}): {case['checked']} of "
+                    f"{case['launches']} steps equal to the plain version (max |diff| "
+                    f"{case['err']:.3g}); {case['ms']:.5f} ms, plain {case['plain_ms']:.3f} ms, "
+                    f"bound {case['bound_ms']:.6f} ms ({case['bound_by']}, {case['bytes']} "
+                    f"bytes), deepest walk {case['depth']}")
+            torch.cuda.empty_cache()
+            log(f"phase 8a A={a} N={n} in {time.perf_counter() - t:.2f} s")
+
+    # ---- 8b. Othello: the trained net, a zero iteration, eval --------------
+    t = time.perf_counter()
+    ocfg = default_config("othello", **algorithm_preset("gaz"))
+    onet = create_network(ocfg, make_env(ocfg).spec)
+    onet.load_state_dict(from_jax_variables(load_variables_npz(os.path.join(ROOT, OTHELLO_NPZ)),
+                                            hidden_hw=64))
+    trained = {k: v.clone() for k, v in onet.state_dict().items()}
+    r = family_path("othello", "gaz", {}, FAMILY_MOVES, 40, zero_counts, counts, trained)
+    out["paths"]["othello"] = r
+    log(f"phase 8b {family_line(r)} (trained net {OTHELLO_NPZ})")
+    oth_zero = zero_iteration("gaz", 41, zero_counts, counts, env_name="othello")
+    log(f"phase 8b zero iteration (othello gaz n=16, 1x256, B={BATCH}, the runs/oth8_gaz_r5 "
+        f"recipe at {ZERO_GAMES} games): {zero_line(oth_zero)}")
+    out["paths"]["othello_zero"] = oth_zero
+    ev = othello_eval(ocfg.replace(zero_num_parallel_games=BATCH), trained, zero_counts, counts)
+    out["paths"]["othello_eval"] = ev
+    log(f"phase 8b eval (-mode eval, othello gaz n=16, 1x256 bf16, {EVAL_GAMES} games at "
+        f"B={BATCH}): {ev['line']} | trained iter {OTHELLO_TRAINED_STEP} against a seeded init: "
+        f"W/L/D {'/'.join(map(str, ev['wld']))}, Elo {ev['elo']:.1f}; {ev['plies']} plies in "
+        f"{ev['seconds']:.2f} s: {1e3 * ev['seconds'] / ev['plies']:.1f} ms/ply, "
+        f"{EVAL_GAMES / ev['seconds']:.1f} games/s, B1 launches {ev['launches']}; phase in "
+        f"{time.perf_counter() - t:.2f} s")
+    if not ev["wld"][0] > ev["wld"][1]:
+        fail(f"othello eval: the trained net did not beat the seeded init: {ev['wld']}")
+
+    # ---- 8c-8e. NoGo, Kill-All-Go, Clobber, Gomoku and Hex ------------------
+    for label, env_name, algo, over, moves, seed in (
+            ("8c", "nogo", "gaz", {}, FAMILY_MOVES, 42),
+            ("8c", "killallgo", "gaz", {"env_killallgo_use_seki": True}, FAMILY_MOVES, 43),
+            ("8d", "clobber", "gaz", {}, FAMILY_MOVES, 44),
+            ("8d", "clobber", "az", {"actor_num_simulation": CLOBBER_AZ_SIMS}, CLOBBER_AZ_MOVES, 45),
+            ("8e", "gomoku", "gaz", {}, FAMILY_MOVES, 46),
+            ("8e", "hex", "gaz", {}, FAMILY_MOVES, 47)):
+        t = time.perf_counter()
+        r = family_path(env_name, algo, over, moves, seed, zero_counts, counts)
+        extra = ""
+        if r["host_checks"] is not None:
+            extra = (f"; Benson's fixpoint checked on the host {r['host_checks']} times over the "
+                     f"scan ({r['host_checks'] / moves:.1f} a move, use_seki=True)")
+        out["paths"][f"{env_name}_{algo}"] = r
+        log(f"phase {label} {family_line(r)}{extra}; in {time.perf_counter() - t:.2f} s")
+    return out
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     if not torch.cuda.is_available():
@@ -1398,6 +1787,9 @@ def main() -> None:
     b3_games = games_per_block()
     for what, name, shape in (("tree_step (gaz/gmz: A=82, N=17; 128 threads)", "tree_step", (82, 17)),
                               ("tree_step (Atari: A=18, N=51; 128 threads)", "tree_step", (18, 51)),
+                              *((f"tree_step, wide kernel (A={a}, N={n})", "tree_step", (a, n))
+                                for a, n in ((400, 17), (3040, 17), (3040, 201))),
+                              ("tree_step_v2, wide kernel (A=400, cap 51)", "tree_step_v2", (400, 51)),
                               *((f"tree_step_v2 (A=82, cap {c}; 128 threads)", "tree_step_v2", (82, c))
                                 for c in (65, 129, AZ_SIMS + 1)),
                               *((f"gather_rows, {path} path ({b3_games} games, {32 * b3_games} "
@@ -1789,6 +2181,48 @@ def main() -> None:
         f"{om['sp_launches']}; -mode env_test (Go 9x9): {om['env_test']} in {om['env_s']:.2f} s; "
         f"-mode zero_training_name: {om['name']} in {om['name_s']:.3f} s")
 
+    # ---- 8. the tree steps past 384 actions; Othello, NoGo, Kill-All-Go,
+    # Clobber, Gomoku and Hex at full width -----------------------------------
+    t = time.perf_counter()
+    p8 = phase8(zero_counts, counts)
+    log(f"phase 8 done in {time.perf_counter() - t:.2f} s")
+    cg, ca = p8["paths"]["clobber_gaz"], p8["paths"]["clobber_az"]
+    wide_rows = [{
+        "name": row["name"], "route": "cuda",
+        "source": ("minizero_tpu_torch/csrc/tree_step_v2.cu" if row["kernel"] == "tree_step_v2"
+                   else "minizero_tpu_torch/csrc/tree_step.cu"),
+        "replaces": {"tree_step": "minizero_tpu/ops/tree_kernel.py:136",
+                     "tree_step_rewards": "minizero_tpu/ops/tree_kernel.py:136 (reward regime)",
+                     "tree_step_v2": "minizero_tpu/ops/tree_kernel_v2.py:240"}[row["kernel"]],
+        "launches": row["launches"], "max_abs_err": row["err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None} for row in p8["rows"]]
+    wide_rows += [{
+        "name": "tree_step_wide (clobber gaz n=16, A=400, N=17)", "route": "cuda",
+        "source": "minizero_tpu_torch/csrc/tree_step.cu",
+        "replaces": "minizero_tpu/ops/tree_kernel.py:136",
+        "launches": cg["launches"]["tree_step"], "max_abs_err": cg["err"], "ms": cg["b1"][0],
+        "plain_ms": cg["b1"][1], "bound_ms": cg["b1"][2], "bound_by": cg["b1"][3],
+        "library_ms": None,
+    }, {
+        "name": "tree_step_v2_wide (clobber az n=50, A=400, cap 51)", "route": "cuda",
+        "source": "minizero_tpu_torch/csrc/tree_step_v2.cu",
+        "replaces": "minizero_tpu/ops/tree_kernel_v2.py:240",
+        "launches": ca["launches"]["tree_step_v2"], "max_abs_err": ca["err"], "ms": ca["b2"][0],
+        "plain_ms": ca["b2"][1], "bound_ms": ca["b2"][2], "bound_by": ca["b2"][3],
+        "library_ms": None,
+    }, {
+        "name": f"gather_rows (clobber az n=50, {ca['b3'][4]}-word rows)", "route": "cuda",
+        "source": "minizero_tpu_torch/csrc/gather_rows.cu",
+        "replaces": "minizero_tpu/ops/gather_rows.py:33",
+        "launches": ca["launches"]["gather_rows"], "max_abs_err": ca["b3_err"], "ms": ca["b3"][0],
+        "plain_ms": ca["b3"][1], "bound_ms": ca["b3"][2], "bound_by": "bytes",
+        "library_ms": ca["b3"][3],
+    }]
+    families = {key: {"ms_per_move": r["ms_per_move"], "env_steps_per_s": r["steps_per_s"]}
+                for key, r in p8["paths"].items() if "ms_per_move" in r}
+    oz, oe = p8["paths"]["othello_zero"], p8["paths"]["othello_eval"]
+
     result = {"kernels": [{
         "name": "tree_step",
         "route": "cuda",
@@ -1837,7 +2271,7 @@ def main() -> None:
         "bound_ms": bound4_ms,
         "bound_by": bound4_by,
         "library_ms": None,
-    }], "env_steps_per_s": steps_per_s, "ms_per_move": 1e3 * elapsed / SCAN_MOVES,
+    }, *wide_rows], "env_steps_per_s": steps_per_s, "ms_per_move": 1e3 * elapsed / SCAN_MOVES,
         "az200_env_steps_per_s": az_steps_per_s, "az200_ms_per_move": az_ms_per_move,
         "gmz_env_steps_per_s": mz_steps_per_s, "gmz_ms_per_move": mz_ms_per_move,
         "atari_mz50_ms_per_search": at_ms_per_search,
@@ -1856,7 +2290,11 @@ def main() -> None:
                             ("ms_per_sgd_step", z["ms_per_step"]),
                             ("selfplay_games_per_s", z["games"] / z["selfplay_s"]),
                             ("selfplay_s", z["selfplay_s"]), ("optimize_s", z["optimize_s"]),
-                            ("b1_launches", z["launches"]))}}
+                            ("b1_launches", z["launches"]))},
+        "families": families, "othello_zero_sgd_steps_per_s": 1e3 / oz["ms_per_step"],
+        "othello_zero_selfplay_s": oz["selfplay_s"], "othello_eval_wld": list(oe["wld"]),
+        "othello_eval_ms_per_ply": 1e3 * oe["seconds"] / oe["plies"],
+        "othello_eval_games_per_s": EVAL_GAMES / oe["seconds"]}
     print(json.dumps(result), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

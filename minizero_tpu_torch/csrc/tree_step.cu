@@ -80,6 +80,29 @@
 //     over a row staged in shared memory): it runs on a few simulations of
 //     a move.
 //
+// Above 384 actions (12 slots; clobber 400, amazons 3040) a row no longer
+// fits a lane's registers, and kernel_for hands out the wide kernel
+// (tree_step_wide_kernel). Its contract and order of operations are the
+// register kernel's, and both call the same helpers for every stage that
+// does not touch a row (expansion of the node, backup, value bounds, the
+// halving score, a descent level's candidates and choice, the selection);
+// what differs is where a row lives:
+//   - the root's row of the Gumbel step (child indices, logits, the legal and
+//     active flags) is staged once in the warp's shared memory, beside a
+//     scratch row of halving scores, and every pass over it strides the
+//     lanes over a = lane + 32 k, as the register slots do;
+//   - a descent level reads its node's rows (children_index, prior, legal)
+//     straight from device memory in one strided pass, and the best visited
+//     child's rows are prefetched into L2 before the init-Q reduction,
+//     where the register kernel loads them into registers;
+//   - the halving rank is computed for the active actions only (the others
+//     are never kept), still over the whole staged row;
+//   - shared memory grows with A (5 N + 3 A + (3 N + A) / 4 floats a warp),
+//     so a block takes as many warps as fit the opt-in 227 KB, at most four;
+//     the launcher refuses a shape where not even one warp fits (at N = 17
+//     about A = 17,800) with kShapeTooLarge, which the wrapper raises as a
+//     ValueError.
+//
 // Numerics. Built with --fmad=false and IEEE logf/sqrtf/division so that each
 // multiply and add rounds like the plain PyTorch version's separate
 // operations; the sum of the children's q at a node is accumulated in double
@@ -282,6 +305,307 @@ __device__ __forceinline__ void load_row(Row<K>& r, const int* ci, const float* 
   }
 }
 
+// ---- the stages that do not touch a row, shared by both kernels ----------
+
+// One game's slices of the trees in device memory.
+struct Game {
+  float *vis, *mean, *value, *reward;  // [N]
+  uint8_t *expanded, *terminal;        // [N]
+  int *parent, *afp, *to_play;         // [N]
+  int* ci;                             // [N, A]
+  float *prior, *logit;                // [N, A]
+  uint8_t* legal;                      // [N, A]
+  uint8_t* gactive;                    // [A]
+  const uint8_t* spath;                // [N]
+};
+
+__device__ __forceinline__ Game game_of(const Args& p, int b) {
+  const size_t N = p.N, A = p.A;
+  return Game{p.visits + b * N, p.mean + b * N, p.value + b * N, p.reward + b * N,
+              p.expanded + b * N, p.terminal + b * N,
+              p.parent + b * N, p.afp + b * N, p.to_play + b * N,
+              p.ci + b * N * A, p.prior + b * N * A, p.logit + b * N * A, p.legal + b * N * A,
+              p.gactive + b * A, p.spath + b * N};
+}
+
+// A game's node vectors in its warp's shared memory: visits, mean, reward,
+// the backed-up value u and parent [N]; expanded, player-2 flag and path
+// [N] bytes. Each kernel lays them out (warp_smem_floats,
+// wide_warp_smem_floats).
+struct Nodes {
+  float *vis, *mean, *reward, *u;
+  int* parent;
+  uint8_t *exp, *p2, *path;
+};
+
+// The node vectors (and the previous path, until the backup has read it)
+// into shared memory, four loads a lane issued together.
+__device__ __forceinline__ void load_nodes(const Game& g, const Nodes& sh, int N, bool en,
+                                           bool rr, int lane) {
+  for (int n0 = 0; n0 < N; n0 += 4 * 32) {
+    float v[4], m[4], r[4];
+    int par[4], tp[4];
+    uint8_t e[4], on[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + 32 * j + lane;
+      const bool in = n < N;
+      v[j] = in ? g.vis[n] : 0.0f;
+      m[j] = in ? g.mean[n] : 0.0f;
+      e[j] = in ? g.expanded[n] : 0;
+      tp[j] = in ? g.to_play[n] : 0;
+      r[j] = in && rr ? g.reward[n] : 0.0f;
+      par[j] = in && rr ? g.parent[n] : -1;
+      on[j] = in && en ? g.spath[n] : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + 32 * j + lane;
+      if (n < N) {
+        sh.vis[n] = v[j];
+        sh.mean[n] = m[j];
+        sh.reward[n] = r[j];
+        sh.parent[n] = par[j];
+        sh.exp[n] = e[j];
+        sh.p2[n] = tp[j] == 2;
+        sh.path[n] = on[j];
+      }
+    }
+  }
+}
+
+// The new leaf's node scalars at slot s and the parent's edge into it (one
+// lane's share of the expansion; the rows are the kernels' own).
+__device__ __forceinline__ void expand_node(const Args& p, const Game& g, const Nodes& sh, int b,
+                                            int s, int sp, int sa, bool edge, bool lt, int lturn,
+                                            float lvalue, float lreward, int num_nodes) {
+  g.expanded[s] = lt ? 0 : 1;
+  g.terminal[s] = lt ? 1 : 0;
+  g.parent[s] = sp;
+  g.afp[s] = sa;
+  g.to_play[s] = lturn;
+  g.value[s] = lvalue;
+  sh.exp[s] = lt ? 0 : 1;
+  sh.p2[s] = lturn == 2;
+  sh.parent[s] = sp;
+  if (p.use_rewards) {
+    g.reward[s] = lreward;
+    sh.reward[s] = lreward;
+  }
+  p.num_nodes[b] = max(num_nodes, s + 1);
+  if (edge) g.ci[(size_t)sp * p.A + sa] = s;
+}
+
+// Step 2: back up v_up and prefetch the rows of the previous path into L2.
+// In the board regime every path node (and the leaf) receives the same
+// value; in the reward regime one lane walks the parent pointers from the
+// leaf to the root (this step's expansion included) computing the value
+// each node receives, u = reward[node] + discount * u, serially as the
+// plain version does, and marks the node (a path has at most N nodes); then
+// every lane updates its marked nodes.
+__device__ __forceinline__ void backup(const Args& p, const Game& g, const Nodes& sh, int N,
+                                       int A, int leaf, float v_up, bool rr, int lane) {
+  for (int n = lane; n < N; n += 32) {
+    const bool on_path = sh.path[n] != 0;
+    sh.path[n] = 0;
+    if (on_path) {
+      prefetch_l2(g.ci + (size_t)n * A, A * 4);
+      prefetch_l2(g.prior + (size_t)n * A, A * 4);
+      prefetch_l2(g.legal + (size_t)n * A, A);
+    }
+    if (!rr && (on_path || n == leaf)) {
+      const float c = sh.vis[n] + 1.0f;
+      const float m = sh.mean[n] + (v_up - sh.mean[n]) / fmaxf(c, 1.0f);
+      sh.vis[n] = c;
+      sh.mean[n] = m;
+      g.vis[n] = c;
+      g.mean[n] = m;
+    }
+  }
+  if (rr) {
+    __syncwarp();
+    if (lane == 0) {
+      float u = v_up;
+      int cur = leaf;
+      for (int it = 0; it < N && cur >= 0; ++it) {
+        sh.u[cur] = u;
+        sh.path[cur] = 1;
+        u = sh.reward[cur] + p.discount * u;
+        cur = sh.parent[cur];
+      }
+    }
+    __syncwarp();
+    for (int n = lane; n < N; n += 32) {
+      if (sh.path[n]) {
+        sh.path[n] = 0;
+        const float c = sh.vis[n] + 1.0f;
+        const float m = sh.mean[n] + (sh.u[n] - sh.mean[n]) / fmaxf(c, 1.0f);
+        sh.vis[n] = c;
+        sh.mean[n] = m;
+        g.vis[n] = c;
+        g.mean[n] = m;
+      }
+    }
+  }
+}
+
+// Per-node raw q and, with value_rescale, the tree's value bounds over the
+// visited nodes (mcts.cpp:40-53, 219-228), fixed for the rest of the step.
+struct QNorm {
+  const float *vis, *mean, *reward;  // the shared node vectors
+  float discount, lo, hi;
+  bool rr, rescale, enough;
+
+  __device__ __forceinline__ float node(int n) const {
+    return rr ? reward[n] + discount * mean[n] : mean[n];
+  }
+  // value rescale (1 while fewer than 2 nodes are visited), then the player
+  // flip (mcts._normalize_q)
+  __device__ __forceinline__ float norm(float q, bool flip) const {
+    if (rescale) {
+      if (enough) {
+        float sc = (q - lo) / fmaxf(hi - lo, 1e-8f);
+        sc = 2.0f * sc - 1.0f;
+        q = fminf(fmaxf(sc, -1.0f), 1.0f);
+      } else {
+        q = 1.0f;
+      }
+    }
+    return flip ? -q : q;
+  }
+};
+
+__device__ __forceinline__ QNorm value_bounds(const Args& p, const Nodes& sh, int N, bool rr,
+                                              int lane) {
+  QNorm qn{sh.vis, sh.mean, sh.reward, p.discount, 0.0f, 0.0f, rr, p.value_rescale != 0, false};
+  if (qn.rescale) {
+    unsigned lo = fkey(3.4e38f), hi = fkey(kNegInf);
+    unsigned visited = 0;
+    for (int n = lane; n < N; n += 32) {
+      if (sh.vis[n] > 0.0f) {
+        const unsigned q = fkey(qn.node(n));
+        lo = min(lo, q);
+        hi = max(hi, q);
+        visited += 1;
+      }
+    }
+    qn.lo = fkey_inv(__reduce_min_sync(kFull, lo));
+    qn.hi = fkey_inv(__reduce_max_sync(kFull, hi));
+    qn.enough = __reduce_add_sync(kFull, visited) >= 2;
+  }
+  return qn;
+}
+
+// A root action's halving score: logit + sigma * q of its child (0 for an
+// unvisited one); NEG_INF unless legal and visited, and unless active.
+__device__ __forceinline__ float halving_score(const QNorm& qn, float logit, bool legal,
+                                               bool active, int c, float cv, float sigma,
+                                               bool flip_root) {
+  const float q_vis = (c >= 0 && cv > 0.0f) ? qn.norm(qn.node(c), flip_root) : 0.0f;
+  float score = logit + sigma * q_vis;
+  if (!(legal && cv > 0.0f)) score = kNegInf;
+  return active ? score : kNegInf;
+}
+
+// The budget that the halving tick adds (gumbel.py's sequential halving).
+__device__ __forceinline__ float next_budget(const Args& p, int gm) {
+  return floorf((float)p.num_sims / (p.log2_m0 * fmaxf((float)gm / 2.0f, 1.0f)));
+}
+
+// One PUCT descent level. take() sees the node's actions one at a time,
+// each lane its own: the lane's best visited legal child, its unvisited
+// legal action of largest prior, and its share of the visited children's
+// q. An unvisited action scores (bias * prior) * root_sim / 1 + init_q: the
+// same init_q for all of them, non-decreasing in the prior (bias >= 0,
+// root_sim >= 0, rounding is monotone), so the one of largest prior (then
+// lowest action) is the best of them under the argmax's order.
+struct Level {
+  Best vis_best{0.0f, 0.0f, -1};
+  float open_p = 0.0f;
+  int open_a = -1;
+  double sum_q = 0.0;
+  unsigned num_visited = 0;
+
+  __device__ __forceinline__ void take(const QNorm& qn, int a, int c, float pr, bool lg,
+                                       bool flip, float bias, float root_sim) {
+    const float cv = c >= 0 ? qn.vis[c] : 0.0f;
+    if (c >= 0 && cv > 0.0f) {
+      const float q = qn.norm(qn.node(c), flip);
+      sum_q += (double)q;
+      num_visited += 1;
+      if (lg) {
+        const float u = bias * pr * root_sim / (1.0f + cv);
+        const Best cand{u + q, pr, a};
+        if (better(cand, vis_best)) vis_best = cand;
+      }
+    } else if (lg && (open_a < 0 || pr > open_p)) {
+      open_p = pr;
+      open_a = a;
+    }
+  }
+
+  // The level's best action (act < 0: no legal one), once vis_best holds
+  // the warp's best visited child: that child, or the unvisited action of
+  // largest prior if it scores higher with init-Q.
+  __device__ __forceinline__ Best choose(bool init_q_average, float bias, float root_sim) const {
+    const unsigned kp = open_a >= 0 ? fkey(open_p) : 0u;
+    const unsigned kpmax = __reduce_max_sync(kFull, kp);
+    const unsigned open_min = __reduce_min_sync(
+        kFull, (open_a >= 0 && kp == kpmax) ? (unsigned)open_a : kNone);
+    const float sq = (float)warp_sum(sum_q);
+    const float nv = (float)__reduce_add_sync(kFull, num_visited);
+    float init_q;
+    if (init_q_average) init_q = nv > 0.0f ? sq / fmaxf(nv, 1.0f) : 1.0f;
+    else init_q = (sq - 1.0f) / (nv + 1.0f);
+    Best best = vis_best;
+    if (open_min != kNone) {
+      const int oa = (int)open_min;
+      const float opr = __shfl_sync(kFull, open_p, oa & 31);
+      const float u = bias * opr * root_sim / (1.0f + 0.0f);  // no visits
+      const Best open{u + init_q, opr, oa};
+      if (better(open, best)) best = open;
+    }
+    return best;
+  }
+};
+
+// The next selection.
+struct Sel {
+  int parent = 0, action = 0, leaf = -1;
+  bool is_new = false;
+};
+
+// The walk took action `act` at `node`, whose child there is `child`: a new
+// edge or an unexpanded child ends it, with the selection written and the
+// leaf marked on the path. Returns whether it ended.
+__device__ __forceinline__ bool settle(Sel& sel, const Nodes& sh, int node, int act, int child,
+                                       int lane) {
+  if (child < 0) {
+    sel.parent = node; sel.action = act; sel.leaf = -1; sel.is_new = true;
+    return true;
+  }
+  if (!sh.exp[child]) {
+    sel.parent = node; sel.action = act; sel.leaf = child; sel.is_new = false;
+    if (lane == 0) sh.path[child] = 1;
+    return true;
+  }
+  return false;
+}
+
+__device__ __forceinline__ void write_selection(const Args& p, int b, const Nodes& sh,
+                                                const Sel& sel, int lane) {
+  uint8_t* npath = p.npath + (size_t)b * p.N;
+  for (int n = lane; n < p.N; n += 32) npath[n] = sh.path[n];
+  if (lane == 0) {
+    p.nparent[b] = sel.parent;
+    p.naction[b] = sel.action;
+    p.nleaf[b] = sel.leaf;
+    p.nnew[b] = sel.is_new ? 1 : 0;
+  }
+}
+
+// ---- the register kernel: A <= 384 ------------------------------------------
+
 template <int K>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 tree_step_kernel(const Args p) {
@@ -294,31 +618,13 @@ tree_step_kernel(const Args p) {
   const int N = p.N, A = p.A, s = p.s;
   const bool en = p.phase > 0;
   const bool rr = p.reward_regime != 0;
+  const Game g = game_of(p, b);
 
-  float* vis = p.visits + (size_t)b * N;
-  float* mean = p.mean + (size_t)b * N;
-  float* value = p.value + (size_t)b * N;
-  float* reward = p.reward + (size_t)b * N;
-  uint8_t* expanded = p.expanded + (size_t)b * N;
-  uint8_t* terminal = p.terminal + (size_t)b * N;
-  int* parent = p.parent + (size_t)b * N;
-  int* to_play = p.to_play + (size_t)b * N;
-  int* ci = p.ci + (size_t)b * N * A;
-  float* prior = p.prior + (size_t)b * N * A;
-  float* logit = p.logit + (size_t)b * N * A;
-  uint8_t* legal = p.legal + (size_t)b * N * A;
-  uint8_t* gactive = p.gactive + (size_t)b * A;
-  const uint8_t* spath = p.spath + (size_t)b * N;
-
-  float* s_vis = smem + (size_t)warp * warp_smem_floats(N, A);
-  float* s_mean = s_vis + N;
-  float* s_reward = s_mean + N;
-  float* s_u = s_reward + N;
-  int* s_parent = reinterpret_cast<int*>(s_u + N);
-  float* s_row = reinterpret_cast<float*>(s_parent + N);
-  uint8_t* s_exp = reinterpret_cast<uint8_t*>(s_row + A);
-  uint8_t* s_p2 = s_exp + N;
-  uint8_t* s_path = s_p2 + N;
+  float* base = smem + (size_t)warp * warp_smem_floats(N, A);
+  float* s_row = base + 5 * N;  // the halving scores
+  uint8_t* bytes = reinterpret_cast<uint8_t*>(s_row + A);
+  const Nodes sh{base, base + N, base + 2 * N, base + 3 * N,
+                 reinterpret_cast<int*>(base + 4 * N), bytes, bytes + N, bytes + 2 * N};
 
   // ---- 0. every load that depends on nothing else, issued together: the
   // selection, the leaf, the Gumbel state and the root's rows, then the
@@ -331,7 +637,7 @@ tree_step_kernel(const Args p) {
   const float lreward = p.use_rewards ? p.lreward[b] : 0.0f;
   const int num_nodes = p.num_nodes[b];
   // the backed-up value: the leaf's, or the stored value of a revisited node
-  const float v_up = snew ? lvalue : (en && leaf >= 0) ? value[leaf] : 0.0f;
+  const float v_up = snew ? lvalue : (en && leaf >= 0) ? g.value[leaf] : 0.0f;
   float lpol[K], llog[K];
   bool llg[K];
 #pragma unroll
@@ -352,43 +658,13 @@ tree_step_kernel(const Args p) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int a = lane + 32 * k;
-      r_ci[k] = a < A ? ci[a] : -1;
-      r_logit[k] = a < A ? logit[a] : 0.0f;
-      r_legal[k] = a < A && legal[a] != 0;
-      r_active[k] = a < A && gactive[a] != 0;
+      r_ci[k] = a < A ? g.ci[a] : -1;
+      r_logit[k] = a < A ? g.logit[a] : 0.0f;
+      r_legal[k] = a < A && g.legal[a] != 0;
+      r_active[k] = a < A && g.gactive[a] != 0;
     }
   }
-  // s_path holds the previous path until the backup has read it
-  for (int n0 = 0; n0 < N; n0 += 4 * 32) {
-    float v[4], m[4], r[4];
-    int par[4], tp[4];
-    uint8_t e[4], on[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 32 * j + lane;
-      const bool in = n < N;
-      v[j] = in ? vis[n] : 0.0f;
-      m[j] = in ? mean[n] : 0.0f;
-      e[j] = in ? expanded[n] : 0;
-      tp[j] = in ? to_play[n] : 0;
-      r[j] = in && rr ? reward[n] : 0.0f;
-      par[j] = in && rr ? parent[n] : -1;
-      on[j] = in && en ? spath[n] : 0;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 32 * j + lane;
-      if (n < N) {
-        s_vis[n] = v[j];
-        s_mean[n] = m[j];
-        s_reward[n] = r[j];
-        s_parent[n] = par[j];
-        s_exp[n] = e[j];
-        s_p2[n] = tp[j] == 2;
-        s_path[n] = on[j];
-      }
-    }
-  }
+  load_nodes(g, sh, N, en, rr, lane);
 
   // ---- 1. expand the new leaf at slot s ----------------------------------
   if (en && snew) {
@@ -397,29 +673,13 @@ tree_step_kernel(const Args p) {
       const int a = lane + 32 * k;
       if (a < A) {
         const bool lg = llg[k] && !lt;
-        prior[(size_t)s * A + a] = lg ? lpol[k] : 0.0f;
-        logit[(size_t)s * A + a] = lg ? llog[k] : 0.0f;
-        legal[(size_t)s * A + a] = lg ? 1 : 0;
+        g.prior[(size_t)s * A + a] = lg ? lpol[k] : 0.0f;
+        g.logit[(size_t)s * A + a] = lg ? llog[k] : 0.0f;
+        g.legal[(size_t)s * A + a] = lg ? 1 : 0;
       }
     }
     const bool edge = sp >= 0 && sp < N && sa >= 0 && sa < A;
-    if (lane == 0) {
-      expanded[s] = lt ? 0 : 1;
-      terminal[s] = lt ? 1 : 0;
-      parent[s] = sp;
-      p.afp[(size_t)b * N + s] = sa;
-      to_play[s] = lturn;
-      value[s] = lvalue;
-      s_exp[s] = lt ? 0 : 1;
-      s_p2[s] = lturn == 2;
-      s_parent[s] = sp;
-      if (p.use_rewards) {
-        reward[s] = lreward;
-        s_reward[s] = lreward;
-      }
-      p.num_nodes[b] = max(num_nodes, s + 1);
-      if (edge) ci[(size_t)sp * A + sa] = s;
-    }
+    if (lane == 0) expand_node(p, g, sh, b, s, sp, sa, edge, lt, lturn, lvalue, lreward, num_nodes);
     if (p.use_gumbel && edge && sp == 0 && lane == (sa & 31)) {  // in the root's row
 #pragma unroll
       for (int k = 0; k < K; ++k)
@@ -431,113 +691,28 @@ tree_step_kernel(const Args p) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int a = lane + 32 * k;
-      r_ci[k] = a < A ? ci[a] : -1;
-      r_logit[k] = a < A ? logit[a] : 0.0f;
-      r_legal[k] = a < A && legal[a] != 0;
+      r_ci[k] = a < A ? g.ci[a] : -1;
+      r_logit[k] = a < A ? g.logit[a] : 0.0f;
+      r_legal[k] = a < A && g.legal[a] != 0;
     }
   }
 
   // ---- 2. back up, and prefetch the rows of the path into L2 ---------------
-  if (en) {
-    for (int n = lane; n < N; n += 32) {
-      const bool on_path = s_path[n] != 0;
-      s_path[n] = 0;
-      if (on_path) {
-        prefetch_l2(ci + (size_t)n * A, A * 4);
-        prefetch_l2(prior + (size_t)n * A, A * 4);
-        prefetch_l2(legal + (size_t)n * A, A);
-      }
-      // board regime: every path node receives the same value
-      if (!rr && (on_path || n == leaf)) {
-        const float c = s_vis[n] + 1.0f;
-        const float m = s_mean[n] + (v_up - s_mean[n]) / fmaxf(c, 1.0f);
-        s_vis[n] = c;
-        s_mean[n] = m;
-        vis[n] = c;
-        mean[n] = m;
-      }
-    }
-    if (rr) {
-      // leaf -> root along the parent pointers (this step's expansion
-      // included): one lane computes the value each node receives,
-      // u = reward[node] + discount * u between nodes, serially as the
-      // plain version does, and marks the node; a path has at most N nodes.
-      // Then every lane updates its marked nodes.
-      __syncwarp();
-      if (lane == 0) {
-        float u = v_up;
-        int cur = leaf;
-        for (int it = 0; it < N && cur >= 0; ++it) {
-          s_u[cur] = u;
-          s_path[cur] = 1;
-          u = s_reward[cur] + p.discount * u;
-          cur = s_parent[cur];
-        }
-      }
-      __syncwarp();
-      for (int n = lane; n < N; n += 32) {
-        if (s_path[n]) {
-          s_path[n] = 0;
-          const float c = s_vis[n] + 1.0f;
-          const float m = s_mean[n] + (s_u[n] - s_mean[n]) / fmaxf(c, 1.0f);
-          s_vis[n] = c;
-          s_mean[n] = m;
-          vis[n] = c;
-          mean[n] = m;
-        }
-      }
-    }
-  }
+  if (en) backup(p, g, sh, N, A, leaf, v_up, rr, lane);
   __syncwarp();
-
-  // per-node raw q and, with value_rescale, the tree's value bounds over the
-  // visited nodes (mcts.cpp:40-53, 219-228); fixed for the rest of the step
-  auto qnode = [&](int n) -> float {
-    return rr ? s_reward[n] + p.discount * s_mean[n] : s_mean[n];
-  };
-  float q_lo = 0.0f, q_hi = 0.0f;
-  bool q_enough = false;
-  if (p.value_rescale) {
-    unsigned lo = fkey(3.4e38f), hi = fkey(kNegInf);
-    unsigned visited = 0;
-    for (int n = lane; n < N; n += 32) {
-      if (s_vis[n] > 0.0f) {
-        const unsigned q = fkey(qnode(n));
-        lo = min(lo, q);
-        hi = max(hi, q);
-        visited += 1;
-      }
-    }
-    q_lo = fkey_inv(__reduce_min_sync(kFull, lo));
-    q_hi = fkey_inv(__reduce_max_sync(kFull, hi));
-    q_enough = __reduce_add_sync(kFull, visited) >= 2;
-  }
-  // value rescale (1 while fewer than 2 nodes are visited), then the player
-  // flip (mcts._normalize_q)
-  auto norm_q = [&](float q, bool flip) -> float {
-    if (p.value_rescale) {
-      if (q_enough) {
-        float sc = (q - q_lo) / fmaxf(q_hi - q_lo, 1e-8f);
-        sc = 2.0f * sc - 1.0f;
-        q = fminf(fmaxf(sc, -1.0f), 1.0f);
-      } else {
-        q = 1.0f;
-      }
-    }
-    return flip ? -q : q;
-  };
+  const QNorm qn = value_bounds(p, sh, N, rr, lane);
 
   // ---- 3-5a. root statistics, halving tick, Gumbel root step -------------
   int first_action = -1;
   if (p.use_gumbel) {
-    const bool flip_root = p.flip && s_p2[0];
+    const bool flip_root = p.flip && sh.p2[0];
     float cv[K], sig[K];
     unsigned max_count = 0;
     bool reached = true;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int c = r_ci[k];
-      cv[k] = c >= 0 ? s_vis[c] : 0.0f;
+      cv[k] = c >= 0 ? sh.vis[c] : 0.0f;
       if (lane + 32 * k < A) {
         max_count = max(max_count, fkey(cv[k]));
         if (r_active[k] && !(cv[k] >= gbudget)) reached = false;
@@ -547,16 +722,11 @@ tree_step_kernel(const Args p) {
     const bool all_reached = __all_sync(kFull, reached);
     const float sigma = (p.sigma_visit_c + max_c) * p.sigma_scale_c;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int c = r_ci[k];
-      const float q_vis = (c >= 0 && cv[k] > 0.0f) ? norm_q(qnode(c), flip_root) : 0.0f;
-      float score = r_logit[k] + sigma * q_vis;
-      if (!(r_legal[k] && cv[k] > 0.0f)) score = kNegInf;
-      sig[k] = r_active[k] ? score : kNegInf;
-    }
-    const float next_budget =
-        floorf((float)p.num_sims / (p.log2_m0 * fmaxf((float)gm / 2.0f, 1.0f)));
-    const bool do_halve = all_reached && next_budget > 0.0f && gm > 2 && en;
+    for (int k = 0; k < K; ++k)
+      sig[k] = halving_score(qn, r_logit[k], r_legal[k], r_active[k], r_ci[k], cv[k], sigma,
+                             flip_root);
+    const float budget = next_budget(p, gm);
+    const bool do_halve = all_reached && budget > 0.0f && gm > 2 && en;
     if (do_halve) {  // uniform across the warp
       const int new_m = gm / 2;
 #pragma unroll
@@ -578,13 +748,13 @@ tree_step_kernel(const Args p) {
         const bool keep = r_active[k] && rank < new_m;
         kept[k] = keep ? ma : kNegInf;
         r_active[k] = keep;
-        if (a < A) gactive[a] = keep ? 1 : 0;
+        if (a < A) g.gactive[a] = keep ? 1 : 0;
       }
       const int best = first_argmax(kept, A, lane);
       const float best_visits = lane_value(cv, best);
       if (lane == 0) {
         p.gm[b] = new_m;
-        p.gbudget[b] = best_visits + next_budget;
+        p.gbudget[b] = best_visits + budget;
       }
     }
     // root step: fewest visits among the active actions, ties -> logit
@@ -595,91 +765,40 @@ tree_step_kernel(const Args p) {
   }
 
   // ---- 5b. PUCT descent ---------------------------------------------------
-  int sel_parent = 0, sel_action = 0, sel_leaf = -1;
-  bool sel_new = false, done = false;
+  Sel sel;
+  bool done = false;
   int node = 0;
   if (first_action >= 0) {
     const int child = lane_value(r_ci, first_action);
-    sel_action = first_action;
-    if (lane == 0) s_path[0] = 1;
-    if (child < 0) {
-      sel_new = true;
-      done = true;
-    } else if (!s_exp[child]) {
-      sel_leaf = child;
-      if (lane == 0) s_path[child] = 1;
-      done = true;
-    } else {
-      node = child;
-    }
+    sel.action = first_action;
+    if (lane == 0) sh.path[0] = 1;
+    done = settle(sel, sh, 0, first_action, child, lane);
+    if (!done) node = child;
   }
   Row<K> row;
   if (!done)
-    load_row(row, ci + (size_t)node * A, prior + (size_t)node * A, legal + (size_t)node * A, A,
-             lane);
+    load_row(row, g.ci + (size_t)node * A, g.prior + (size_t)node * A,
+             g.legal + (size_t)node * A, A, lane);
   for (int it = 0; it < N && !done; ++it) {  // `done` is uniform
-    const bool flip_node = p.flip && s_p2[node];
-    const float total_sim = s_vis[node] - 1.0f;
+    const bool flip_node = p.flip && sh.p2[node];
+    const float total_sim = sh.vis[node] - 1.0f;
     const float bias = p.puct_init + logf((1.0f + total_sim + p.puct_base) / p.puct_base);
     const float root_sim = sqrtf(fmaxf(total_sim, 0.0f));
-    if (lane == 0) s_path[node] = 1;
-    // one pass: the lane's best visited legal child, its unvisited legal
-    // lane of largest prior, and its share of the visited children's q.
-    // An unvisited lane scores (bias * prior) * root_sim / 1 + init_q: the
-    // same init_q for all of them, non-decreasing in the prior (bias >= 0,
-    // root_sim >= 0, rounding is monotone), so the one of largest prior
-    // (then lowest action) is the best of them under the argmax's order.
-    Best vis_best{0.0f, 0.0f, -1};
-    float open_p = 0.0f;
-    int open_a = -1;
-    double sum_q = 0.0;
-    unsigned num_visited = 0;
+    if (lane == 0) sh.path[node] = 1;
+    Level lv;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int a = lane + 32 * k;
-      const int c = row.c[k];
-      const float cv = c >= 0 ? s_vis[c] : 0.0f;
-      if (c >= 0 && cv > 0.0f) {
-        const float q = norm_q(qnode(c), flip_node);
-        sum_q += (double)q;
-        num_visited += 1;
-        if (row.lg[k]) {
-          const float u = bias * row.pr[k] * root_sim / (1.0f + cv);
-          const Best cand{u + q, row.pr[k], a};
-          if (better(cand, vis_best)) vis_best = cand;
-        }
-      } else if (row.lg[k] && (open_a < 0 || row.pr[k] > open_p)) {
-        open_p = row.pr[k];
-        open_a = a;
-      }
-    }
+    for (int k = 0; k < K; ++k)
+      lv.take(qn, lane + 32 * k, row.c[k], row.pr[k], row.lg[k], flip_node, bias, root_sim);
     // the best visited child, and its rows on their way before init-Q is
     // known: when the descent goes on, it goes into that child unless an
     // unvisited (unexpanded) lane wins
-    vis_best = warp_best(vis_best);
-    const int spec_c = vis_best.act >= 0 ? lane_value(row.c, vis_best.act) : -1;
+    lv.vis_best = warp_best(lv.vis_best);
+    const int spec_c = lv.vis_best.act >= 0 ? lane_value(row.c, lv.vis_best.act) : -1;
     Row<K> next;
     const int nx = spec_c >= 0 ? spec_c : node;
-    load_row(next, ci + (size_t)nx * A, prior + (size_t)nx * A, legal + (size_t)nx * A, A,
+    load_row(next, g.ci + (size_t)nx * A, g.prior + (size_t)nx * A, g.legal + (size_t)nx * A, A,
              lane);
-    const unsigned kp = open_a >= 0 ? fkey(open_p) : 0u;
-    const unsigned kpmax = __reduce_max_sync(kFull, kp);
-    const unsigned open_min = __reduce_min_sync(
-        kFull, (open_a >= 0 && kp == kpmax) ? (unsigned)open_a : kNone);
-    const float sq = (float)warp_sum(sum_q);
-    const float nv = (float)__reduce_add_sync(kFull, num_visited);
-    float init_q;
-    if (p.init_q_average) init_q = nv > 0.0f ? sq / fmaxf(nv, 1.0f) : 1.0f;
-    else init_q = (sq - 1.0f) / (nv + 1.0f);
-    Best best = vis_best;
-    if (open_min != kNone) {
-      const int oa = (int)open_min;
-      const float opr = __shfl_sync(kFull, open_p, oa & 31);
-      const float u = bias * opr * root_sim / (1.0f + 0.0f);  // no visits
-      const Best open{u + init_q, opr, oa};
-      if (better(open, best)) best = open;
-    }
-    int act = best.act;
+    int act = lv.choose(p.init_q_average, bias, root_sim).act;
     if (act < 0) {  // no legal action: every score is NEG_INF
       float none[K];
 #pragma unroll
@@ -687,37 +806,241 @@ tree_step_kernel(const Args p) {
       act = argmax_tiebreak(none, row.pr, A, lane);
     }
     const int child = lane_value(row.c, act);
-    if (child < 0) {
-      sel_parent = node; sel_action = act; sel_leaf = -1; sel_new = true;
-      done = true;
-    } else if (!s_exp[child]) {
-      sel_parent = node; sel_action = act; sel_leaf = child; sel_new = false;
-      if (lane == 0) s_path[child] = 1;
-      done = true;
-    } else {
+    done = settle(sel, sh, node, act, child, lane);
+    if (!done) {
       if (child == spec_c) row = next;
       else
-        load_row(row, ci + (size_t)child * A, prior + (size_t)child * A,
-                 legal + (size_t)child * A, A, lane);
+        load_row(row, g.ci + (size_t)child * A, g.prior + (size_t)child * A,
+                 g.legal + (size_t)child * A, A, lane);
       node = child;
     }
   }
   __syncwarp();
+  write_selection(p, b, sh, sel, lane);
+}
 
-  uint8_t* npath = p.npath + (size_t)b * N;
-  for (int n = lane; n < N; n += 32) npath[n] = s_path[n];
-  if (lane == 0) {
-    p.nparent[b] = sel_parent;
-    p.naction[b] = sel_action;
-    p.nleaf[b] = sel_leaf;
-    p.nnew[b] = sel_new ? 1 : 0;
+// ---- the wide kernel: A > 384 ---------------------------------------------
+
+constexpr int kRegisterSlots = 12;           // the register kernel's largest K
+constexpr size_t kMaxBlockSmem = 232448;     // Hopper's opt-in shared memory a block
+constexpr int kShapeTooLarge = -1;           // not one warp fits a block
+
+// shared memory of one warp of the wide kernel, in floats: the register
+// kernel's node vectors and scratch row, the root's child indices and logits
+// [A] each, then expanded, player-2 flag, path [N] bytes and the root's
+// flags (bit 0 legal, bit 1 active) [A] bytes
+__host__ __device__ inline int wide_warp_smem_floats(int N, int A) {
+  return 5 * N + 3 * A + (3 * N + A + 3) / 4;
+}
+
+// argmax_tiebreak over a row read through score(a) and tb(a), each lane
+// striding over a = lane + 32 k: the register version's order (largest
+// score, then the largest tie-break among the maxima, then the lowest index)
+template <class S, class T>
+__device__ __forceinline__ int argmax_tiebreak_wide(S score, T tb, int A, int lane) {
+  unsigned m = 0;
+  for (int a = lane; a < A; a += 32) m = max(m, fkey(score(a)));
+  const unsigned best = __reduce_max_sync(kFull, m);
+  const unsigned neg = fkey(kNegInf);
+  unsigned t = 0, idx = kNone;
+  for (int a = lane; a < A; a += 32) {
+    const unsigned kt = fkey(score(a)) == best ? fkey(tb(a)) : neg;
+    if (kt > t) {  // the lane's first a at its largest key
+      t = kt;
+      idx = (unsigned)a;
+    }
   }
+  const unsigned best_tb = __reduce_max_sync(kFull, t);
+  const unsigned out = __reduce_min_sync(kFull, t == best_tb ? idx : kNone);
+  return out == kNone ? A : (int)out;
+}
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+tree_step_wide_kernel(const Args p) {
+  extern __shared__ float smem[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * warps + warp;
+  if (b >= p.B) return;  // whole warp: b is uniform across its lanes
+
+  const int N = p.N, A = p.A, s = p.s;
+  const bool en = p.phase > 0;
+  const bool rr = p.reward_regime != 0;
+  const Game g = game_of(p, b);
+  const float* lpolicy = p.lpolicy + (size_t)b * A;
+  const float* llogit = p.llogit + (size_t)b * A;
+  const uint8_t* llegal = p.llegal + (size_t)b * A;
+
+  float* base = smem + (size_t)warp * wide_warp_smem_floats(N, A);
+  float* s_row = base + 5 * N;  // the halving scores
+  int* s_rci = reinterpret_cast<int*>(s_row + A);
+  float* s_rlogit = reinterpret_cast<float*>(s_rci + A);
+  uint8_t* bytes = reinterpret_cast<uint8_t*>(s_rlogit + A);
+  const Nodes sh{base, base + N, base + 2 * N, base + 3 * N,
+                 reinterpret_cast<int*>(base + 4 * N), bytes, bytes + N, bytes + 2 * N};
+  uint8_t* s_rflag = bytes + 3 * N;
+
+  // ---- 0. the selection, the leaf, the Gumbel state and the root's row,
+  // then the node vectors (and the previous path) into shared memory ------
+  const bool snew = p.snew[b] != 0;
+  const bool lt = p.lterm[b] != 0;
+  const int sp = p.sparent[b], sa = p.saction[b], lturn = p.lturn[b];
+  const int leaf = snew ? s : p.sleaf[b];
+  const float lvalue = p.lvalue[b];
+  const float lreward = p.use_rewards ? p.lreward[b] : 0.0f;
+  const int num_nodes = p.num_nodes[b];
+  const float v_up = snew ? lvalue : (en && leaf >= 0) ? g.value[leaf] : 0.0f;
+  int gm = 0;
+  float gbudget = 0.0f;
+  if (p.use_gumbel) {
+    gm = p.gm[b];
+    gbudget = p.gbudget[b];
+    for (int a = lane; a < A; a += 32) {
+      s_rci[a] = g.ci[a];
+      s_rlogit[a] = g.logit[a];
+      s_rflag[a] = (g.legal[a] != 0 ? 1 : 0) | (g.gactive[a] != 0 ? 2 : 0);
+    }
+  }
+  load_nodes(g, sh, N, en, rr, lane);
+  __syncwarp();
+
+  // ---- 1. expand the new leaf at slot s ----------------------------------
+  if (en && snew) {
+    for (int a = lane; a < A; a += 32) {
+      const bool lg = llegal[a] != 0 && !lt;
+      g.prior[(size_t)s * A + a] = lg ? lpolicy[a] : 0.0f;
+      g.logit[(size_t)s * A + a] = lg ? llogit[a] : 0.0f;
+      g.legal[(size_t)s * A + a] = lg ? 1 : 0;
+    }
+    const bool edge = sp >= 0 && sp < N && sa >= 0 && sa < A;
+    if (lane == 0) expand_node(p, g, sh, b, s, sp, sa, edge, lt, lturn, lvalue, lreward, num_nodes);
+    if (p.use_gumbel && edge && sp == 0 && lane == (sa & 31)) s_rci[sa] = s;  // the root's row
+  }
+  __syncwarp();
+  if (p.use_gumbel && en && snew && s == 0) {  // the root rewritten
+    for (int a = lane; a < A; a += 32) {
+      s_rci[a] = g.ci[a];
+      s_rlogit[a] = g.logit[a];
+      s_rflag[a] = (g.legal[a] != 0 ? 1 : 0) | (s_rflag[a] & 2);
+    }
+  }
+
+  // ---- 2. back up, and prefetch the rows of the path into L2 ---------------
+  if (en) backup(p, g, sh, N, A, leaf, v_up, rr, lane);
+  __syncwarp();
+  const QNorm qn = value_bounds(p, sh, N, rr, lane);
+
+  // ---- 3-5a. root statistics, halving tick, Gumbel root step -------------
+  int first_action = -1;
+  if (p.use_gumbel) {
+    const bool flip_root = p.flip && sh.p2[0];
+    auto child_visits = [&](int a) -> float {
+      const int c = s_rci[a];
+      return c >= 0 ? sh.vis[c] : 0.0f;
+    };
+    unsigned max_count = 0;
+    bool reached = true;
+    for (int a = lane; a < A; a += 32) {
+      const float cv = child_visits(a);
+      max_count = max(max_count, fkey(cv));
+      if ((s_rflag[a] & 2) && !(cv >= gbudget)) reached = false;
+    }
+    const float max_c = fkey_inv(__reduce_max_sync(kFull, max_count));
+    const bool all_reached = __all_sync(kFull, reached);
+    const float sigma = (p.sigma_visit_c + max_c) * p.sigma_scale_c;
+    for (int a = lane; a < A; a += 32)  // the halving scores
+      s_row[a] = halving_score(qn, s_rlogit[a], (s_rflag[a] & 1) != 0, (s_rflag[a] & 2) != 0,
+                               s_rci[a], child_visits(a), sigma, flip_root);
+    const float budget = next_budget(p, gm);
+    const bool do_halve = all_reached && budget > 0.0f && gm > 2 && en;
+    if (do_halve) {  // uniform across the warp
+      const int new_m = gm / 2;
+      __syncwarp();
+      // keep the active actions of rank < new_m, and find the first kept
+      // action of the largest score (first_argmax of the kept scores)
+      unsigned km = 0, kidx = kNone;
+      for (int a = lane; a < A; a += 32) {
+        const float ma = s_row[a];
+        const bool active = (s_rflag[a] & 2) != 0;
+        int rank = 0;
+        if (active) {
+          for (int j = 0; j < A; ++j) {
+            const float mj = s_row[j];
+            rank += (mj > ma) || (mj == ma && j < a);
+          }
+        }
+        const bool keep = active && rank < new_m;
+        const unsigned kk = fkey(keep ? ma : kNegInf);
+        if (kk > km) {
+          km = kk;
+          kidx = (unsigned)a;
+        }
+        s_rflag[a] = (s_rflag[a] & 1) | (keep ? 2 : 0);
+        g.gactive[a] = keep ? 1 : 0;
+      }
+      const unsigned kbest = __reduce_max_sync(kFull, km);
+      const unsigned bmin = __reduce_min_sync(kFull, km == kbest ? kidx : kNone);
+      const float best_visits = bmin == kNone ? 0.0f : child_visits((int)bmin);
+      if (lane == 0) {
+        p.gm[b] = new_m;
+        p.gbudget[b] = best_visits + budget;
+      }
+      __syncwarp();
+    }
+    // root step: fewest visits among the active actions, ties -> logit
+    first_action = argmax_tiebreak_wide(
+        [&](int a) { return (s_rflag[a] & 2) ? -child_visits(a) : kNegInf; },
+        [&](int a) { return s_rlogit[a]; }, A, lane);
+  }
+
+  // ---- 5b. PUCT descent ---------------------------------------------------
+  Sel sel;
+  bool done = false;
+  int node = 0;
+  if (first_action >= 0) {
+    const int child = first_action < A ? s_rci[first_action] : -1;
+    sel.action = first_action;
+    if (lane == 0) sh.path[0] = 1;
+    done = settle(sel, sh, 0, first_action, child, lane);
+    if (!done) node = child;
+  }
+  for (int it = 0; it < N && !done; ++it) {  // `done` is uniform
+    const int* crow = g.ci + (size_t)node * A;
+    const float* prow = g.prior + (size_t)node * A;
+    const uint8_t* lrow = g.legal + (size_t)node * A;
+    const bool flip_node = p.flip && sh.p2[node];
+    const float total_sim = sh.vis[node] - 1.0f;
+    const float bias = p.puct_init + logf((1.0f + total_sim + p.puct_base) / p.puct_base);
+    const float root_sim = sqrtf(fmaxf(total_sim, 0.0f));
+    if (lane == 0) sh.path[node] = 1;
+    Level lv;  // one strided pass, as the register kernel's one pass over its slots
+    for (int a = lane; a < A; a += 32)
+      lv.take(qn, a, crow[a], prow[a], lrow[a] != 0, flip_node, bias, root_sim);
+    lv.vis_best = warp_best(lv.vis_best);
+    const int spec_c = lv.vis_best.act >= 0 ? crow[lv.vis_best.act] : -1;
+    if (spec_c >= 0) {  // the likely next level's rows, on their way to L2
+      if (lane == 0) prefetch_l2(g.ci + (size_t)spec_c * A, A * 4);
+      if (lane == 1) prefetch_l2(g.prior + (size_t)spec_c * A, A * 4);
+      if (lane == 2) prefetch_l2(g.legal + (size_t)spec_c * A, A);
+    }
+    int act = lv.choose(p.init_q_average, bias, root_sim).act;
+    if (act < 0) {  // no legal action: every score is NEG_INF
+      act = argmax_tiebreak_wide([&](int) { return kNegInf; }, [&](int a) { return prow[a]; },
+                                 A, lane);
+    }
+    const int child = act < A ? crow[act] : -1;
+    done = settle(sel, sh, node, act, child, lane);
+    if (!done) node = child;
+  }
+  __syncwarp();
+  write_selection(p, b, sh, sel, lane);
 }
 
 using KernelFn = void (*)(const Args);
 
 // the instantiation for A actions: K = ceil(A / 32) slots, rounded up to
-// one of the compiled sizes; nullptr above 12 slots (A > 384)
+// one of the compiled sizes; the wide kernel above 12 slots (A > 384)
 KernelFn kernel_for(int A) {
   const int k = (A + 31) / 32;
   if (k <= 1) return tree_step_kernel<1>;
@@ -725,12 +1048,23 @@ KernelFn kernel_for(int A) {
   if (k == 3) return tree_step_kernel<3>;
   if (k == 4) return tree_step_kernel<4>;
   if (k <= 8) return tree_step_kernel<8>;
-  if (k <= 12) return tree_step_kernel<12>;
-  return nullptr;
+  if (k <= kRegisterSlots) return tree_step_kernel<kRegisterSlots>;
+  return tree_step_wide_kernel;
+}
+
+// warps a block: four for the register kernel; for the wide kernel as many
+// as the opt-in shared memory holds, at most four (0: not even one)
+int warps_for(int N, int A) {
+  if (A <= 32 * kRegisterSlots) return kWarpsPerBlock;
+  const size_t per_warp = (size_t)wide_warp_smem_floats(N, A) * sizeof(float);
+  return (int)(kMaxBlockSmem / per_warp < (size_t)kWarpsPerBlock ? kMaxBlockSmem / per_warp
+                                                                  : (size_t)kWarpsPerBlock);
 }
 
 size_t dynamic_smem(int N, int A) {
-  return (size_t)kWarpsPerBlock * warp_smem_floats(N, A) * sizeof(float);
+  if (A <= 32 * kRegisterSlots)
+    return (size_t)kWarpsPerBlock * warp_smem_floats(N, A) * sizeof(float);
+  return (size_t)warps_for(N, A) * wide_warp_smem_floats(N, A) * sizeof(float);
 }
 
 }  // namespace
@@ -751,7 +1085,8 @@ extern "C" int tree_step_launch(
     void* stream) {
   if (B == 0) return 0;
   const KernelFn kernel = kernel_for(A);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const int warps = warps_for(N, A);
+  if (warps == 0) return kShapeTooLarge;
   Args p;
   p.B = B; p.N = N; p.A = A; p.s = s; p.phase = phase;
   p.use_gumbel = use_gumbel; p.flip = flip; p.init_q_average = init_q_average;
@@ -784,8 +1119,8 @@ extern "C" int tree_step_launch(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  kernel<<<blocks, kWarpsPerBlock * 32, smem, (cudaStream_t)stream>>>(p);
+  const int blocks = (B + warps - 1) / warps;
+  kernel<<<blocks, warps * 32, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -794,7 +1129,7 @@ extern "C" int tree_step_launch(
 extern "C" int tree_step_attributes(int A, int N, int* regs, int* static_smem,
                                     int* dynamic_smem_bytes) {
   const KernelFn kernel = kernel_for(A);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  if (warps_for(N, A) == 0) return kShapeTooLarge;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;

@@ -69,6 +69,21 @@
 //     __reduce_min_sync on the action. The key maps -0.0 and +0.0 to one
 //     value, as the reference's float comparisons do.
 //
+// Above 384 actions (12 slots; clobber 400, amazons 3040) a row no longer
+// fits a lane's registers, and kernel_for hands out the wide kernel
+// (tree_step_v2_wide_kernel), whose contract and order of operations are the
+// register kernel's. Its rows stay in device memory: the expansion writes
+// them and the root's edge there, and a walk level reads its cix row, player
+// lane and the prior of its open lanes in one pass that strides the lanes
+// over a = lane + 32 k, as the register slots do; the best child's rows are
+// prefetched into L2 before the init-Q reduction instead of loaded into
+// registers. Both kernels call the same helpers for every stage that does
+// not touch a row (the node's expansion, backup, PUCT factors, a level's
+// candidates and choice, the selection). Its shared memory is the register
+// kernel's (it grows with the capacity only), four games a block; the
+// launcher refuses a capacity whose block exceeds the opt-in 227 KB (above
+// 2767) with kShapeTooLarge, which the wrapper raises as a ValueError.
+//
 // Numerics. Built with --fmad=false and IEEE logf/sqrtf/division, so that
 // each multiply and add rounds as the plain PyTorch version's separate
 // operations do, in the same order: ((bias * prior) * sqrt(n)) / (1 + n_c)
@@ -195,6 +210,224 @@ __device__ __forceinline__ void prefetch_l2(const void* p, int bytes) {
                :: "l"(lo), "r"((unsigned)(hi - lo)) : "memory");
 }
 
+// ---- the stages that do not touch a row, shared by both kernels ----------
+
+// One game's slices of the packed trees in device memory.
+struct Game {
+  float* prior;                          // [cap, L]
+  int* cix;                              // [cap, L]
+  float *vis, *mean, *value, *pedge;     // [cap]
+  const uint8_t* spath;                  // [cap]
+};
+
+__device__ __forceinline__ Game game_of(const Args& p, int b) {
+  const size_t cap = p.cap, L = p.L;
+  return Game{p.prior + b * cap * L, p.cix + b * cap * L, p.visits + b * cap, p.mean + b * cap,
+              p.value + b * cap, p.pedge + b * cap, p.spath + b * cap};
+}
+
+// A game's node statistics in its warp's shared memory (warp_smem_floats).
+struct Nodes {
+  float *vis, *mean, *pedge, *bias, *sq;
+  uint8_t* path;
+};
+
+__device__ __forceinline__ Nodes nodes_of(float* smem, int warp, int cap) {
+  float* base = smem + (size_t)warp * warp_smem_floats(cap);
+  return Nodes{base, base + cap, base + 2 * cap, base + 3 * cap, base + 4 * cap,
+               reinterpret_cast<uint8_t*>(base + 5 * cap)};
+}
+
+// The node statistics (and the previous path, until the backup has read
+// it) into shared memory, four loads a lane issued together.
+__device__ __forceinline__ void load_nodes(const Game& g, const Nodes& sh, int cap, bool en,
+                                           int lane) {
+  for (int n0 = 0; n0 < cap; n0 += 4 * 32) {
+    float v[4], m[4], e[4];
+    uint8_t on[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + 32 * j + lane;
+      v[j] = n < cap ? g.vis[n] : 0.0f;
+      m[j] = n < cap ? g.mean[n] : 0.0f;
+      e[j] = n < cap ? g.pedge[n] : 0.0f;
+      on[j] = en && n < cap ? g.spath[n] : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + 32 * j + lane;
+      if (n < cap) {
+        sh.vis[n] = v[j];
+        sh.mean[n] = m[j];
+        sh.pedge[n] = e[j];
+        sh.path[n] = on[j];
+      }
+    }
+  }
+}
+
+// Row s's spare lanes (the node scalars) and, on lane 0, the node vectors
+// and the parent's edge lane `enc` (s, or -3 - s for a terminal leaf); the
+// action lanes are the kernels' own.
+__device__ __forceinline__ void expand_node(const Args& p, const Game& g, const Nodes& sh, int b,
+                                            int s, int sp, int sa, int lturn, bool lt, int enc,
+                                            float lvalue, float sprior, int lane) {
+  const int A = p.A, L = p.L, cap = p.cap;
+  float* prow = g.prior + (size_t)s * L;
+  int* crow = g.cix + (size_t)s * L;
+  for (int l = A + lane; l < L; l += 32) {
+    int cv = -2;
+    if (l == A) cv = sp;
+    else if (l == A + 1) cv = sa;
+    else if (l == A + 2) cv = lturn;
+    else if (l == A + 3) cv = lt ? 0 : 1;
+    else if (l == A + 4) cv = lt ? 1 : 0;
+    prow[l] = 0.0f;
+    crow[l] = cv;
+  }
+  if (lane == 0) {
+    p.pvec[(size_t)b * cap + s] = sp;
+    p.avec[(size_t)b * cap + s] = sa;
+    p.pterm[(size_t)b * cap + s] = lt ? 1 : 0;
+    g.pedge[s] = sprior;
+    sh.pedge[s] = sprior;
+    g.value[s] = lvalue;
+    g.cix[(size_t)sp * L + sa] = enc;
+  }
+}
+
+// Step 2: back up v along the path plus the start node, and prefetch the
+// rows of the path into L2.
+__device__ __forceinline__ void backup(const Game& g, const Nodes& sh, int cap, int L, int start,
+                                       float v, int lane) {
+  for (int n = lane; n < cap; n += 32) {
+    const bool on_path = sh.path[n] != 0;
+    sh.path[n] = 0;
+    if (on_path) {
+      prefetch_l2(g.cix + (size_t)n * L, L * 4);
+      prefetch_l2(g.prior + (size_t)n * L, L * 4);
+    }
+    if (on_path || n == start) {
+      const float c = sh.vis[n] + 1.0f;
+      const float m = sh.mean[n] + (v - sh.mean[n]) / fmaxf(c, 1.0f);
+      sh.vis[n] = c;
+      sh.mean[n] = m;
+      g.vis[n] = c;
+      g.mean[n] = m;
+    }
+  }
+}
+
+// The PUCT factors of every node: bias and sqrt of its visits less one.
+__device__ __forceinline__ void puct_factors(const Args& p, const Nodes& sh, int cap, int lane) {
+  for (int n = lane; n < cap; n += 32) {
+    const float total = sh.vis[n] - 1.0f;
+    sh.bias[n] = p.puct_init + logf((1.0f + total + p.puct_base) / p.puct_base);
+    sh.sq[n] = sqrtf(fmaxf(total, 0.0f));
+  }
+}
+
+// One walk level. take() sees the node's actions one at a time, each lane
+// its own: the lane's best child, its open lane (cix == -1) of largest
+// prior, and its share of the children's q. `prior_of` reads the action's
+// prior, needed for open lanes only.
+struct Level {
+  Best child{0.0f, 0.0f, -1};
+  float open_pr = 0.0f;
+  int open_act = -1;
+  double sum_q = 0.0;
+  int nv = 0;
+
+  template <class P>
+  __device__ __forceinline__ void take(const Nodes& sh, int a, int c, P prior_of, bool flip,
+                                       float bias, float sq) {
+    if (c >= 0 || c <= -3) {
+      const int ch = c >= 0 ? c : -3 - c;
+      float q = sh.mean[ch];
+      if (flip) q = -q;
+      sum_q += (double)q;
+      nv += 1;
+      const float pe = sh.pedge[ch];
+      const float u = bias * pe * sq / (1.0f + sh.vis[ch]);
+      const Best cand{q + u, pe, a};
+      if (better(cand, child)) child = cand;
+    } else if (c == -1) {
+      const float pr = prior_of();
+      if (open_act < 0 || pr > open_pr) {
+        open_pr = pr;
+        open_act = a;
+      }
+    }
+  }
+
+  // The level's best candidate (act < 0: none), once `child` holds the
+  // warp's best child: that child, or the open lane of largest prior (then
+  // lowest action) if it scores higher with init-Q, and then `c` becomes -1.
+  __device__ __forceinline__ Best choose(bool init_q_average, float bias, float sq,
+                                         int& c) const {
+    const unsigned kp = open_act >= 0 ? fkey(open_pr) : 0u;
+    const unsigned kpmax = __reduce_max_sync(kFull, kp);
+    const unsigned open_min = __reduce_min_sync(
+        kFull, (open_act >= 0 && kp == kpmax) ? (unsigned)open_act : kNoAction);
+    const float sqf = (float)warp_sum(sum_q);
+    const float nvf = (float)__reduce_add_sync(kFull, (unsigned)nv);
+    float init_q;
+    if (init_q_average) init_q = nvf > 0.0f ? sqf / fmaxf(nvf, 1.0f) : 1.0f;
+    else init_q = (sqf - 1.0f) / (nvf + 1.0f);
+    Best best = child;
+    if (open_min != kNoAction) {
+      const int oa = (int)open_min;
+      const float opr = __shfl_sync(kFull, open_pr, oa & 31);
+      const Best open{init_q + bias * opr * sq, opr, oa};
+      if (better(open, best)) {
+        best = open;
+        c = -1;
+      }
+    }
+    return best;
+  }
+};
+
+// The next selection.
+struct Sel {
+  int parent = 0, action = 0, leaf = -1;
+  bool is_new = false;
+  float prior = 0.0f;
+};
+
+// The walk took action `act` (tie-break prior `tb`) at `cur`, whose edge
+// there is `c`: a new edge (-1) or a terminal child (<= -3) ends it, with
+// the selection written and a revisited leaf marked on the path. Returns
+// whether it ended.
+__device__ __forceinline__ bool settle(Sel& sel, const Nodes& sh, int cur, int act, int c, float tb,
+                                       int lane) {
+  if (c == -1 || c <= -3) {
+    sel.parent = cur;
+    sel.action = act;
+    sel.is_new = c == -1;
+    sel.leaf = sel.is_new ? -1 : -3 - c;
+    sel.prior = tb;
+    if (!sel.is_new && lane == 0) sh.path[sel.leaf] = 1;
+    return true;
+  }
+  return false;
+}
+
+__device__ __forceinline__ void write_selection(const Args& p, int b, const Nodes& sh,
+                                                const Sel& sel, int lane) {
+  uint8_t* npath = p.npath + (size_t)b * p.cap;
+  for (int n = lane; n < p.cap; n += 32) npath[n] = sh.path[n];
+  if (lane == 0) {
+    p.nparent[b] = sel.parent;
+    p.naction[b] = sel.action;
+    p.nleaf[b] = sel.leaf;
+    p.nnew[b] = sel.is_new ? 1 : 0;
+    p.nprior[b] = sel.prior;
+  }
+}
+
+// ---- the register kernel: A <= 384 ------------------------------------------
+
 template <int K>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 tree_step_v2_kernel(const Args p) {
@@ -206,18 +439,8 @@ tree_step_v2_kernel(const Args p) {
 
   const int cap = p.cap, A = p.A, L = p.L, s = p.s;
   const bool en = p.phase > 0;
-  float* prior = p.prior + (size_t)b * cap * L;
-  int* cix = p.cix + (size_t)b * cap * L;
-  float* vis = p.visits + (size_t)b * cap;
-  float* mean = p.mean + (size_t)b * cap;
-  float* value = p.value + (size_t)b * cap;
-  float* pedge = p.pedge + (size_t)b * cap;
-  float* s_vis = smem + (size_t)warp * warp_smem_floats(cap);
-  float* s_mean = s_vis + cap;
-  float* s_pedge = s_mean + cap;
-  float* s_bias = s_pedge + cap;
-  float* s_sq = s_bias + cap;
-  uint8_t* s_path = reinterpret_cast<uint8_t*>(s_sq + cap);
+  const Game g = game_of(p, b);
+  const Nodes sh = nodes_of(smem, warp, cap);
 
   // ---- 0. every load that depends on nothing else, issued together: the
   // selection, the leaf, the root's row, then the node statistics into
@@ -227,8 +450,7 @@ tree_step_v2_kernel(const Args p) {
   const int sp = p.sparent[b], sa = p.saction[b], sleaf = p.sleaf[b], lturn = p.lturn[b];
   const float lvalue = p.lvalue[b], sprior = p.sprior[b];
   // the backed-up value: the leaf's, or the stored value of a revisited node
-  const float v_up = (en && !snew) ? value[max(sleaf, 0)] : lvalue;
-  const uint8_t* spath = p.spath + (size_t)b * cap;
+  const float v_up = (en && !snew) ? g.value[max(sleaf, 0)] : lvalue;
   float lpol[K];
   bool llive[K];
 #pragma unroll
@@ -238,35 +460,13 @@ tree_step_v2_kernel(const Args p) {
     lpol[k] = en && a < A ? p.lpolicy[(size_t)b * A + a] : 0.0f;
   }
   Row<K> row;  // the root's; the expansion may write one of its lanes
-  load_row(row, cix, prior, A, lane);
-  // s_path holds the previous path until the backup has read it
-  for (int n0 = 0; n0 < cap; n0 += 4 * 32) {
-    float v[4], m[4], e[4];
-    uint8_t on[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 32 * j + lane;
-      v[j] = n < cap ? vis[n] : 0.0f;
-      m[j] = n < cap ? mean[n] : 0.0f;
-      e[j] = n < cap ? pedge[n] : 0.0f;
-      on[j] = en && n < cap ? spath[n] : 0;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 32 * j + lane;
-      if (n < cap) {
-        s_vis[n] = v[j];
-        s_mean[n] = m[j];
-        s_pedge[n] = e[j];
-        s_path[n] = on[j];
-      }
-    }
-  }
+  load_row(row, g.cix, g.prior, A, lane);
+  load_nodes(g, sh, cap, en, lane);
 
   // ---- 1. expand row s and write the parent's edge ------------------------
   if (en && snew) {
-    float* prow = prior + (size_t)s * L;
-    int* crow = cix + (size_t)s * L;
+    float* prow = g.prior + (size_t)s * L;
+    int* crow = g.cix + (size_t)s * L;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int a = lane + 32 * k;
@@ -276,26 +476,8 @@ tree_step_v2_kernel(const Args p) {
         crow[a] = live ? -1 : -2;
       }
     }
-    for (int l = A + lane; l < L; l += 32) {
-      int cv = -2;
-      if (l == A) cv = sp;
-      else if (l == A + 1) cv = sa;
-      else if (l == A + 2) cv = lturn;
-      else if (l == A + 3) cv = lt ? 0 : 1;
-      else if (l == A + 4) cv = lt ? 1 : 0;
-      prow[l] = 0.0f;
-      crow[l] = cv;
-    }
     const int enc = lt ? -3 - s : s;
-    if (lane == 0) {
-      p.pvec[(size_t)b * cap + s] = sp;
-      p.avec[(size_t)b * cap + s] = sa;
-      p.pterm[(size_t)b * cap + s] = lt ? 1 : 0;
-      pedge[s] = sprior;
-      s_pedge[s] = sprior;
-      value[s] = lvalue;
-      cix[(size_t)sp * L + sa] = enc;
-    }
+    expand_node(p, g, sh, b, s, sp, sa, lturn, lt, enc, lvalue, sprior, lane);
     if (sp == 0 && lane == (sa & 31)) {  // the edge lies in the root's row
 #pragma unroll
       for (int k = 0; k < K; ++k)
@@ -303,103 +485,36 @@ tree_step_v2_kernel(const Args p) {
     }
   }
   __syncwarp();
-  if (en && snew && s == 0) load_row(row, cix, prior, A, lane);  // the root rewritten
+  if (en && snew && s == 0) load_row(row, g.cix, g.prior, A, lane);  // the root rewritten
 
   // ---- 2. back up along the path plus the start node, and prefetch the
   // rows of the path into L2 ---------------------------------------------------
-  if (en) {
-    const int start = snew ? s : max(sleaf, 0);
-    const float v = v_up;
-    for (int n = lane; n < cap; n += 32) {
-      const bool on_path = s_path[n] != 0;
-      s_path[n] = 0;
-      if (on_path) {
-        prefetch_l2(cix + (size_t)n * L, L * 4);
-        prefetch_l2(prior + (size_t)n * L, L * 4);
-      }
-      if (on_path || n == start) {
-        const float c = s_vis[n] + 1.0f;
-        const float m = s_mean[n] + (v - s_mean[n]) / fmaxf(c, 1.0f);
-        s_vis[n] = c;
-        s_mean[n] = m;
-        vis[n] = c;
-        mean[n] = m;
-      }
-    }
-  }
+  if (en) backup(g, sh, cap, L, snew ? s : max(sleaf, 0), v_up, lane);
   __syncwarp();
 
   // ---- 3. PUCT walk from the root -----------------------------------------
-  // the PUCT factors of every node: bias and sqrt of its visits less one
-  for (int n = lane; n < cap; n += 32) {
-    const float total = s_vis[n] - 1.0f;
-    s_bias[n] = p.puct_init + logf((1.0f + total + p.puct_base) / p.puct_base);
-    s_sq[n] = sqrtf(fmaxf(total, 0.0f));
-  }
+  puct_factors(p, sh, cap, lane);
   __syncwarp();
   int cur = 0;
-  int sel_parent = 0, sel_action = 0, sel_leaf = -1;
-  bool sel_new = false;
-  float sel_prior = 0.0f;
+  Sel sel;
   for (int depth = 0; depth < cap; ++depth) {
     const bool flip = p.flip && row.turn == 2;
-    const float bias = s_bias[cur], sq = s_sq[cur];
-    if (lane == 0) s_path[cur] = 1;
-    // one pass: the lane's best child, its open lane of largest prior, and
-    // its share of the children's q
-    Best child{0.0f, 0.0f, -1};
-    float open_pr = 0.0f;
-    int open_act = -1;
-    double sum_q = 0.0;
-    int nv = 0;
+    const float bias = sh.bias[cur], sq = sh.sq[cur];
+    if (lane == 0) sh.path[cur] = 1;
+    Level lv;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int a = lane + 32 * k;
-      const int c = row.c[k];
-      if (c >= 0 || c <= -3) {
-        const int ch = c >= 0 ? c : -3 - c;
-        float q = s_mean[ch];
-        if (flip) q = -q;
-        sum_q += (double)q;
-        nv += 1;
-        const float pe = s_pedge[ch];
-        const float u = bias * pe * sq / (1.0f + s_vis[ch]);
-        const Best cand{q + u, pe, a};
-        if (better(cand, child)) child = cand;
-      } else if (c == -1 && (open_act < 0 || row.pr[k] > open_pr)) {
-        open_pr = row.pr[k];
-        open_act = a;
-      }
-    }
+    for (int k = 0; k < K; ++k)
+      lv.take(sh, lane + 32 * k, row.c[k], [pr = row.pr[k]] { return pr; }, flip, bias, sq);
     // the best child, and its row on its way before init-Q is known
-    child = warp_best(child);
+    lv.child = warp_best(lv.child);
     int child_c = -2;
-    if (child.act >= 0)
-      child_c = __shfl_sync(kFull, pick(row.c, child.act >> 5), child.act & 31);
+    if (lv.child.act >= 0)
+      child_c = __shfl_sync(kFull, pick(row.c, lv.child.act >> 5), lv.child.act & 31);
     Row<K> next;
     const int nx = child_c >= 0 ? child_c : cur;
-    load_row(next, cix + (size_t)nx * L, prior + (size_t)nx * L, A, lane);
-    // the best open lane: largest prior, then lowest action
-    const unsigned kp = open_act >= 0 ? fkey(open_pr) : 0u;
-    const unsigned kpmax = __reduce_max_sync(kFull, kp);
-    const unsigned open_min = __reduce_min_sync(
-        kFull, (open_act >= 0 && kp == kpmax) ? (unsigned)open_act : kNoAction);
-    const float sqf = (float)warp_sum(sum_q);
-    const float nvf = (float)__reduce_add_sync(kFull, (unsigned)nv);
-    float init_q;
-    if (p.init_q_average) init_q = nvf > 0.0f ? sqf / fmaxf(nvf, 1.0f) : 1.0f;
-    else init_q = (sqf - 1.0f) / (nvf + 1.0f);
-    Best best = child;
+    load_row(next, g.cix + (size_t)nx * L, g.prior + (size_t)nx * L, A, lane);
     int c = child_c;
-    if (open_min != kNoAction) {
-      const int oa = (int)open_min;
-      const float opr = __shfl_sync(kFull, open_pr, oa & 31);
-      const Best open{init_q + bias * opr * sq, opr, oa};
-      if (better(open, best)) {
-        best = open;
-        c = -1;
-      }
-    }
+    const Best best = lv.choose(p.init_q_average, bias, sq, c);
     int act = best.act;
     float tb = best.tb;
     if (act < 0) {  // no candidate at all: the reference's argmax gives A - 1
@@ -407,38 +522,102 @@ tree_step_v2_kernel(const Args p) {
       tb = -INFINITY;
       c = __shfl_sync(kFull, pick(row.c, act >> 5), act & 31);
     }
-    if (c == -1 || c <= -3) {
-      sel_parent = cur;
-      sel_action = act;
-      sel_new = c == -1;
-      sel_leaf = sel_new ? -1 : -3 - c;
-      sel_prior = tb;
-      if (!sel_new && lane == 0) s_path[sel_leaf] = 1;
-      break;
-    }
+    if (settle(sel, sh, cur, act, c, tb, lane)) break;
     // a child (c >= 0), or no candidate at all (c == -2): the reference
     // then clamps to the root
     cur = max(c, 0);
     if (cur == nx) row = next;  // already on its way
-    else load_row(row, cix + (size_t)cur * L, prior + (size_t)cur * L, A, lane);
+    else load_row(row, g.cix + (size_t)cur * L, g.prior + (size_t)cur * L, A, lane);
+  }
+  __syncwarp();
+  write_selection(p, b, sh, sel, lane);
+}
+
+// ---- the wide kernel: A > 384 ---------------------------------------------
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+tree_step_v2_wide_kernel(const Args p) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= p.B) return;  // whole warp: b is uniform across its lanes
+
+  const int cap = p.cap, A = p.A, L = p.L, s = p.s;
+  const bool en = p.phase > 0;
+  const Game g = game_of(p, b);
+  const Nodes sh = nodes_of(smem, warp, cap);
+  const float* lpolicy = p.lpolicy + (size_t)b * A;
+  const uint8_t* llegal = p.llegal + (size_t)b * A;
+
+  // ---- 0. the selection, the leaf, then the node statistics into shared
+  // memory -----------------------------------------------------------------
+  const bool snew = p.snew[b] != 0;
+  const bool lt = p.lterm[b] != 0;
+  const int sp = p.sparent[b], sa = p.saction[b], sleaf = p.sleaf[b], lturn = p.lturn[b];
+  const float lvalue = p.lvalue[b], sprior = p.sprior[b];
+  const float v_up = (en && !snew) ? g.value[max(sleaf, 0)] : lvalue;
+  load_nodes(g, sh, cap, en, lane);
+  __syncwarp();
+
+  // ---- 1. expand row s and write the parent's edge ------------------------
+  if (en && snew) {
+    float* prow = g.prior + (size_t)s * L;
+    int* crow = g.cix + (size_t)s * L;
+    for (int a = lane; a < A; a += 32) {
+      const bool live = llegal[a] != 0 && !lt;
+      prow[a] = live ? lpolicy[a] : 0.0f;
+      crow[a] = live ? -1 : -2;
+    }
+    expand_node(p, g, sh, b, s, sp, sa, lturn, lt, lt ? -3 - s : s, lvalue, sprior, lane);
   }
   __syncwarp();
 
-  uint8_t* npath = p.npath + (size_t)b * cap;
-  for (int n = lane; n < cap; n += 32) npath[n] = s_path[n];
-  if (lane == 0) {
-    p.nparent[b] = sel_parent;
-    p.naction[b] = sel_action;
-    p.nleaf[b] = sel_leaf;
-    p.nnew[b] = sel_new ? 1 : 0;
-    p.nprior[b] = sel_prior;
+  // ---- 2. back up along the path plus the start node, and prefetch the
+  // rows of the path into L2 ---------------------------------------------------
+  if (en) backup(g, sh, cap, L, snew ? s : max(sleaf, 0), v_up, lane);
+  __syncwarp();
+
+  // ---- 3. PUCT walk from the root -----------------------------------------
+  puct_factors(p, sh, cap, lane);
+  __syncwarp();
+  int cur = 0;
+  Sel sel;
+  for (int depth = 0; depth < cap; ++depth) {
+    const int* crow = g.cix + (size_t)cur * L;
+    const float* prow = g.prior + (size_t)cur * L;
+    const bool flip = p.flip && crow[A + 2] == 2;
+    const float bias = sh.bias[cur], sq = sh.sq[cur];
+    if (lane == 0) sh.path[cur] = 1;
+    Level lv;  // one strided pass, as the register kernel's one pass over its slots
+    for (int a = lane; a < A; a += 32)
+      lv.take(sh, a, crow[a], [&] { return prow[a]; }, flip, bias, sq);
+    lv.child = warp_best(lv.child);
+    const int child_c = lv.child.act >= 0 ? crow[lv.child.act] : -2;
+    if (child_c >= 0) {  // the likely next level's rows, on their way to L2
+      if (lane == 0) prefetch_l2(g.cix + (size_t)child_c * L, L * 4);
+      if (lane == 1) prefetch_l2(g.prior + (size_t)child_c * L, L * 4);
+    }
+    int c = child_c;
+    const Best best = lv.choose(p.init_q_average, bias, sq, c);
+    int act = best.act;
+    float tb = best.tb;
+    if (act < 0) {  // no candidate at all: the reference's argmax gives A - 1
+      act = A - 1;
+      tb = -INFINITY;
+      c = crow[act];
+    }
+    if (settle(sel, sh, cur, act, c, tb, lane)) break;
+    cur = max(c, 0);  // a child, or the root when there is none (c == -2)
   }
+  __syncwarp();
+  write_selection(p, b, sh, sel, lane);
 }
 
 using KernelFn = void (*)(const Args);
 
 // the instantiation for A actions: K = ceil(A / 32) slots, rounded up to
-// one of the compiled sizes; nullptr above 12 slots (A > 384)
+// one of the compiled sizes; the wide kernel above 12 slots (A > 384)
 KernelFn kernel_for(int A) {
   const int k = (A + 31) / 32;
   if (k <= 1) return tree_step_v2_kernel<1>;
@@ -447,12 +626,15 @@ KernelFn kernel_for(int A) {
   if (k == 4) return tree_step_v2_kernel<4>;
   if (k <= 8) return tree_step_v2_kernel<8>;
   if (k <= 12) return tree_step_v2_kernel<12>;
-  return nullptr;
+  return tree_step_v2_wide_kernel;
 }
 
 size_t dynamic_smem(int cap) {
   return (size_t)kWarpsPerBlock * warp_smem_floats(cap) * sizeof(float);
 }
+
+constexpr size_t kMaxBlockSmem = 232448;  // Hopper's opt-in shared memory a block
+constexpr int kShapeTooLarge = -1;        // the block does not fit
 
 }  // namespace
 
@@ -467,7 +649,7 @@ extern "C" int tree_step_v2_launch(
     void* stream) {
   if (B == 0) return 0;
   const KernelFn kernel = kernel_for(A);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  if (dynamic_smem(cap) > kMaxBlockSmem) return kShapeTooLarge;
   Args p;
   p.B = B; p.cap = cap; p.A = A; p.L = L; p.s = s; p.phase = phase;
   p.flip = flip; p.init_q_average = init_q_average;
@@ -501,7 +683,7 @@ extern "C" int tree_step_v2_launch(
 extern "C" int tree_step_v2_attributes(int A, int cap, int* regs, int* static_smem,
                                        int* dynamic_smem_bytes) {
   const KernelFn kernel = kernel_for(A);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  if (dynamic_smem(cap) > kMaxBlockSmem) return kShapeTooLarge;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;

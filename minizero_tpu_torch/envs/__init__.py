@@ -2,7 +2,8 @@
 
 ``env_defaults`` keeps the per-env config defaults of every game family, so
 ``config.default_config`` gives the same configs as the JAX package. Of the
-envs themselves Go and TicTacToe are ported; ``make_env`` raises
+envs themselves Go, TicTacToe, Othello, NoGo, Kill-All-Go, Clobber, Gomoku
+(with Outer-Open Gomoku) and Hex are ported; ``make_env`` raises
 ``NotImplementedError`` for the others (ROADMAP.md, queue A, lists them).
 """
 
@@ -23,7 +24,7 @@ _TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]
         {"env_board_size": 3, "actor_dirichlet_noise_alpha": 0.11},
     ),
     "othello": (
-        None,
+        "minizero_tpu_torch.envs.othello",
         "OthelloEnv",
         lambda cfg: {"board_size": cfg.env_board_size or 8},
         {"env_board_size": 8, "actor_dirichlet_noise_alpha": 0.12},
@@ -35,13 +36,13 @@ _TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]
         {"env_board_size": 9, "env_go_komi": 7.5, "actor_dirichlet_noise_alpha": 0.03},
     ),
     "nogo": (
-        None,
+        "minizero_tpu_torch.envs.nogo",
         "NoGoEnv",
         lambda cfg: {"board_size": cfg.env_board_size or 9},
         {"env_board_size": 9, "actor_dirichlet_noise_alpha": 0.03},
     ),
     "gomoku": (
-        None,
+        "minizero_tpu_torch.envs.gomoku",
         "GomokuEnv",
         lambda cfg: {
             "board_size": cfg.env_board_size or 15,
@@ -51,7 +52,7 @@ _TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]
         {"env_board_size": 15, "actor_dirichlet_noise_alpha": 0.03},
     ),
     "outer_open_gomoku": (
-        None,
+        "minizero_tpu_torch.envs.gomoku",
         "GomokuEnv",
         lambda cfg: {
             "board_size": cfg.env_board_size or 15,
@@ -61,7 +62,7 @@ _TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]
         {"env_board_size": 15, "actor_dirichlet_noise_alpha": 0.03},
     ),
     "hex": (
-        None,
+        "minizero_tpu_torch.envs.hex",
         "HexEnv",
         lambda cfg: {"board_size": cfg.env_board_size or 11, "use_swap_rule": cfg.env_hex_use_swap_rule},
         {"env_board_size": 11, "actor_dirichlet_noise_alpha": 0.03},
@@ -73,14 +74,14 @@ _TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]
         {"env_board_size": 19, "actor_dirichlet_noise_alpha": 0.03},
     ),
     "killallgo": (
-        None,
+        "minizero_tpu_torch.envs.killallgo",
         "KillAllGoEnv",
         lambda cfg: {"board_size": cfg.env_board_size or 7, "use_seki": cfg.env_killallgo_use_seki,
                      "ko_rule": cfg.env_killallgo_ko_rule},
         {"env_board_size": 7, "actor_dirichlet_noise_alpha": 0.03},
     ),
     "clobber": (
-        None,
+        "minizero_tpu_torch.envs.clobber",
         "ClobberEnv",
         lambda cfg: {"board_size": cfg.env_board_size or 10},
         {"env_board_size": 10, "actor_dirichlet_noise_alpha": 0.03},

@@ -28,6 +28,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import math
+
 import numpy as np
 import torch
 
@@ -69,6 +71,7 @@ class GoEnv(Env):
         self.komi = float(komi)
         self.situational = ko_rule == "situational"
         self.max_moves = 2 * nn + 1
+        self.cc_rounds = int(math.ceil(math.log2(max(nn, 2)))) + 4
         self.spec = EnvSpec(
             name=f"go_{board_size}x{board_size}",
             num_players=2,
@@ -127,6 +130,22 @@ class GoEnv(Env):
         out[..., :, :-1] |= g[..., :, 1:]
         out[..., :, 1:] |= g[..., :, :-1]
         return out.reshape(x.shape)
+
+    def _cc_labels(self, active: torch.Tensor, connected: torch.Tensor) -> torch.Tensor:
+        """i32[B, NN] connected-component labels (the least member index; NN
+        outside ``active``). ``connected``: bool[B, NN, 4] edge mask. The JAX
+        package's fixed ``cc_rounds`` rounds of min-propagation, each with a
+        pointer jump, so that the labels equal its labels."""
+        nn = self.nn
+        nb = self._tables(active.device)["nbr"]
+        idx = torch.arange(nn, device=active.device)
+        labels = torch.where(active, idx, nn)
+        for _ in range(self.cc_rounds):
+            nbr_lab = torch.where(connected, labels[:, nb], nn)
+            lab = torch.minimum(labels, nbr_lab.amin(-1))
+            lab = torch.minimum(lab, torch.gather(lab, 1, lab.clamp(0, nn - 1)))  # pointer jump
+            labels = torch.where(active, lab, nn)
+        return labels.to(torch.int32)
 
     @staticmethod
     def _first_of_label(mask: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

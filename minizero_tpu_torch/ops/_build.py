@@ -90,6 +90,10 @@ def build(names: Sequence[str]) -> List[BuildResult]:
     return [results[n] for n in names]
 
 
+# what a launcher returns, instead of a cudaError, for a shape whose block
+# needs more shared memory than the card lets a block hold
+SHAPE_TOO_LARGE = -1
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
@@ -109,6 +113,8 @@ def kernel_attributes(name: str, *shape: int) -> Dict[str, int]:
     fn = getattr(load(name), f"{name}_attributes")
     vals = [ctypes.c_int() for _ in range(3)]
     rc = fn(*[ctypes.c_int(x) for x in shape], *[ctypes.byref(v) for v in vals])
+    if rc == SHAPE_TOO_LARGE:
+        raise ValueError(f"{name}: a block at {shape} needs more shared memory than the card holds")
     if rc != 0:
         raise RuntimeError(f"{name}_attributes failed (cudaError {rc})")
     return dict(zip(("registers", "static_smem", "dynamic_smem"), (v.value for v in vals)))

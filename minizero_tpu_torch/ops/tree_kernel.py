@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from minizero_tpu_torch.ops import _build
 from minizero_tpu_torch.search import gumbel as gz
 from minizero_tpu_torch.search import mcts
 from minizero_tpu_torch.search.mcts import SearchSpec, Selection, Tree
@@ -31,7 +32,6 @@ from minizero_tpu_torch.search.mcts import SearchSpec, Selection, Tree
 # the next selection plus its root-to-leaf path mask (the JAX package's
 # NextSelection): parent/action/leaf i32[B], is_new bool[B], path bool[B, N]
 NextSelection = Selection
-MAX_ACTIONS = 384  # the CUDA kernel keeps a row in registers, 12 actions a lane
 
 
 def supports_fused_tree_step(spec: SearchSpec) -> bool:
@@ -78,8 +78,6 @@ _ARGTYPES = [_I] * 12 + [_F] * 6 + [_P] * 35  # see tree_step_launch
 
 
 def _library():
-    from minizero_tpu_torch.ops import _build
-
     lib = _build.load("tree_step")
     fn = lib.tree_step_launch
     if fn.argtypes is None:
@@ -138,8 +136,6 @@ def fused_tree_step(
 
     b, n = trees.visits.shape
     a = spec.action_size
-    if a > MAX_ACTIONS:
-        raise ValueError(f"fused_tree_step: {a} actions, the kernel takes at most {MAX_ACTIONS}")
     if n != spec.max_nodes:
         raise ValueError(f"fused_tree_step: trees hold {n} nodes, spec says {spec.max_nodes}")
     if not 0 <= int(node_idx) < n:
@@ -193,6 +189,10 @@ def fused_tree_step(
         *[x.data_ptr() for x in outputs],
         torch.cuda.current_stream(device).cuda_stream,
     )
+    if rc == _build.SHAPE_TOO_LARGE:
+        raise ValueError(
+            f"fused_tree_step: one game of {n} nodes x {a} actions needs more shared memory "
+            f"than a block may hold on this card (csrc/tree_step.cu, warps_for)")
     if rc != 0:
         raise RuntimeError(f"fused_tree_step: CUDA kernel launch failed (cudaError {rc})")
     if reward_regime:

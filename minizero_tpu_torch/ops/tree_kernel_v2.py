@@ -41,10 +41,10 @@ from typing import Tuple
 
 import torch
 
+from minizero_tpu_torch.ops import _build
 from minizero_tpu_torch.search.mcts import SearchSpec, Tree
 
 SPARE = 8  # spare lanes for the packed node scalars
-MAX_ACTIONS = 384  # the CUDA kernel keeps a row in registers, 12 actions a lane
 
 
 @dataclass
@@ -298,8 +298,6 @@ _ARGTYPES = [ctypes.c_int] * 8 + [ctypes.c_float] * 2 + [_P] * 27  # see tree_st
 
 
 def _library():
-    from minizero_tpu_torch.ops import _build
-
     fn = _build.load("tree_step_v2").tree_step_v2_launch
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
@@ -347,8 +345,6 @@ def fused_tree_step_v2(
 
     b, cap, l = packed.prior.shape
     a = spec.action_size
-    if a > MAX_ACTIONS:
-        raise ValueError(f"fused_tree_step_v2: {a} actions, the kernel takes at most {MAX_ACTIONS}")
     if l != lane_width(spec):
         raise ValueError(f"fused_tree_step_v2: {l} lanes, spec says {lane_width(spec)}")
     if not 0 <= int(node_idx) < cap:
@@ -386,6 +382,10 @@ def fused_tree_step_v2(
         *[x.data_ptr() for x in outputs],
         torch.cuda.current_stream(device).cuda_stream,
     )
+    if rc == _build.SHAPE_TOO_LARGE:
+        raise ValueError(
+            f"fused_tree_step_v2: capacity {cap} needs more shared memory a block than this "
+            f"card holds (csrc/tree_step_v2.cu, dynamic_smem)")
     if rc != 0:
         raise RuntimeError(f"fused_tree_step_v2: CUDA kernel launch failed (cudaError {rc})")
     fused_tree_step_v2.launches += 1

@@ -1,15 +1,24 @@
 """Export a ZeroLoop checkpoint's inference variables to an ``.npz`` that
 the PyTorch port reads with numpy alone.
 
-    python scripts/export_trained_weights.py [CKPT] [OUT]
+    python scripts/export_trained_weights.py [CKPT] [OUT] [ENV] [PRESET]
 
 Defaults: ``runs/go9_az200_r3b/model/weight_iter_25000.ckpt`` (the net the
 JAX ``bench.py`` times az n=200 with) into
-``minizero_tpu_torch/assets/go9_az200_r3b_iter25000.npz``. The checkpoint is
+``minizero_tpu_torch/assets/go9_az200_r3b_iter25000.npz``, with the env
+``go`` and the preset ``az``. The trained Othello net of ``runs/oth8_gaz_r5``
+(Gumbel AlphaZero, 1 x 256) is exported with
+
+    python scripts/export_trained_weights.py \
+        runs/oth8_gaz_r5/model/weight_iter_60000.ckpt \
+        minizero_tpu_torch/assets/oth8_gaz_r5_iter60000.npz othello gaz
+
+The checkpoint is
 a pickle of flax msgpack bytes (``eval/match.py::load_checkpoint_variables``
 reads it); the ``.npz`` holds ``params`` and ``batch_stats`` flattened to
 "/"-joined keys, which ``minizero_tpu_torch.weights.load_variables_npz``
-nests again for ``weights.from_jax_variables``. The run's config is the
+nests again for ``weights.from_jax_variables``. The net's shape comes from
+``default_config(ENV, **algorithm_preset(PRESET))``: the default is the
 Go 9x9 ``az`` preset at n=200 (``bench.py:60``). Runs on the CPU.
 """
 
@@ -45,8 +54,10 @@ def flatten(tree, prefix=""):
     return out
 
 
-def main(ckpt: str = CKPT, out: str = OUT) -> None:
-    cfg = default_config("go", **algorithm_preset("az")).replace(actor_num_simulation=200)
+def main(ckpt: str = CKPT, out: str = OUT, env_name: str = "go", preset: str = "az") -> None:
+    cfg = default_config(env_name, **algorithm_preset(preset))
+    if (env_name, preset) == ("go", "az"):
+        cfg = cfg.replace(actor_num_simulation=200)
     env = make_env(cfg)
     net = create_network(cfg, env.spec)
     variables = load_checkpoint_variables(ckpt, cfg, net, env.spec)
@@ -58,4 +69,4 @@ def main(ckpt: str = CKPT, out: str = OUT) -> None:
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:3])
+    main(*sys.argv[1:5])

@@ -42,9 +42,12 @@ def test_config_presets_and_to_string_match(algo, env_name):
 
 
 def test_env_registry_go_only():
-    # the ported envs: Go, and TicTacToe for the zero loop's CPU tests
-    assert available_envs() == ["go", "tictactoe"]
-    cfg = tcfg.default_config("othello")
+    # the ported envs: Go, TicTacToe for the zero loop's CPU tests, and
+    # Othello, NoGo, Kill-All-Go, Clobber, Gomoku
+    # (with Outer-Open Gomoku) and Hex; the rest still raise
+    assert available_envs() == ["clobber", "go", "gomoku", "hex", "killallgo", "nogo",
+                                "othello", "outer_open_gomoku", "tictactoe"]
+    cfg = tcfg.default_config("connect6")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_env(cfg)
     env = make_env(tcfg.default_config("go"))

@@ -660,14 +660,14 @@ def test_tree_step_v2_kernel_at_a_ragged_batch_with_revisits():
     assert revisits > 0
 
 
-def _tied_leaf(b, a):
+def _tied_leaf(b, a, dev="cuda"):
     """Leaf priors and logits drawn from a few values (priors include -0.0
     and +0.0), so that PUCT scores and the Gumbel root step's logits tie."""
-    priors = torch.tensor([-0.0, 0.0, 0.125, 0.25], device="cuda")
+    priors = torch.tensor([-0.0, 0.0, 0.125, 0.25], device=dev)
 
     def make(g):
-        idx = torch.randint(0, 4, (b, a), generator=g, device="cuda")
-        logit = torch.randint(0, 2, (b, a), generator=g, device="cuda").float()
+        idx = torch.randint(0, 4, (b, a), generator=g, device=dev)
+        logit = torch.randint(0, 2, (b, a), generator=g, device=dev).float()
         return priors[idx], logit
     return make
 
@@ -712,6 +712,161 @@ def test_tree_step_reward_regime_chain_of_n_levels_with_rescale():
     trees, _, depth = _reward_regime_steps(spec, b, 71, chain_leaf, reward_scale=100.0)
     assert depth == sims + 1
     assert bool((trees.visits[:, 0] == sims + 1).all())
+
+
+def _wide_b1_search(a, sims, regime, b, seed, dev="cuda"):
+    """Every step of a search at ``a`` > 384 actions (the tree step's wide
+    kernel), each held against the plain version: the board regime with the
+    Gumbel root on tied leaves (halving ticks: m = 4 at n = 16, 16 at n =
+    200), or the reward regime with PUCT and value rescale. Returns the
+    trees, the Gumbel sample size and the longest selection path."""
+    from minizero_tpu_torch.search import mcts
+
+    board = regime == "board"
+    m0 = 4 if sims < 64 else 16
+    spec = mcts.SearchSpec(action_size=a, num_simulations=sims, use_gumbel=board,
+                           use_gumbel_noise=False, use_dirichlet_noise=False,
+                           gumbel_sample_size=m0, flip_player2_value=board,
+                           discount=1.0 if board else 0.997, value_rescale=not board,
+                           init_q_average=not board)
+    make = _tied_leaf(b, a, dev) if board else _random_leaf(b, a, dev)
+    trees, _, depth = _reward_regime_steps(spec, b, seed, make, dev=dev, rewards=not board)
+    return trees, m0, depth
+
+
+def _v2_caps(sims):
+    """The engine's capacity stages for ``sims`` simulations (65 -> 129 ->
+    ... -> sims + 1), or one stage below 65 nodes."""
+    caps, c = [], 65
+    while c < sims + 1:
+        caps.append(c)
+        c = (c - 1) * 2 + 1
+    return caps + [sims + 1]
+
+
+def _wide_b2_search(a, sims, b, seed, dev="cuda"):
+    """Every step of a staged v2 search at ``a`` > 384 actions (B2's wide
+    kernel) on random leaves, a third of them terminal, each held against
+    the plain version. Returns the number of revisited terminal leaves."""
+    from minizero_tpu_torch.ops import tree_kernel_v2 as tv2
+    from minizero_tpu_torch.search import mcts
+
+    spec = mcts.SearchSpec(action_size=a, num_simulations=sims, use_gumbel=False,
+                           flip_player2_value=True, init_q_average=False)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def leaf_inputs():
+        policy = torch.softmax(torch.randn((b, a), generator=g, device=dev) * 3.0, -1)
+        legal = torch.rand((b, a), generator=g, device=dev) < 0.9
+        legal[:, 0] = True
+        terminal = torch.rand((b,), generator=g, device=dev) < 0.3
+        value = torch.rand((b,), generator=g, device=dev) * 2.0 - 1.0
+        turn = (1 + (torch.rand((b,), generator=g, device=dev) < 0.5)).to(torch.int32)
+        return policy, legal.contiguous(), terminal, value, turn
+
+    policy, legal, _, _, _ = leaf_inputs()
+    turns = torch.ones((b,), dtype=torch.int32, device=dev)
+    zeros_i = torch.zeros((b,), dtype=torch.int32, device=dev)
+    trees = mcts.init_tree(spec, turns)
+    trees = mcts.expand_node(spec, trees, 0, zeros_i - 1, zeros_i, turns, policy, policy.log(),
+                             legal, torch.zeros((b,), dtype=torch.bool, device=dev))
+    trees = mcts.backup(spec, trees, zeros_i, torch.zeros((b,), device=dev),
+                        torch.zeros((b,), device=dev))
+    caps = _v2_caps(sims)
+    packed = tv2.pack_trees(spec, trees, caps[0])
+    sel = tv2.empty_selection_v2(spec, b, caps[0], dev)
+    cap_i, revisits = 0, 0
+    for sim in range(sims + 1):
+        if sim >= caps[cap_i]:
+            cap_i += 1
+            packed = tv2.grow(packed, caps[cap_i])
+            extra = caps[cap_i] - sel.path.shape[1]
+            sel.path = torch.cat([sel.path, torch.zeros((b, extra), dtype=torch.bool,
+                                                        device=dev)], 1)
+        phase = 0 if sim == 0 else 1
+        revisits += int((~sel.is_new).sum()) if phase else 0
+        packed, sel = _v2_step_checked(spec, packed, sel, leaf_inputs(), sim, phase)
+    return revisits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime", ["board", "reward"])
+@pytest.mark.parametrize("sims", [16, 200])
+@pytest.mark.parametrize("a", [385, 801, 3040])
+def test_tree_step_above_384_actions_matches_plain(a, sims, regime):
+    """The tree step at more actions than a lane's registers hold (A = 385,
+    801 and 3040; N = 17 and 201; B = 64): the wide kernel against the plain
+    version at every step, in the board regime (Gumbel root, halving ticks,
+    tied leaves) and the reward regime (PUCT, rescale)."""
+    _need_card()
+    from minizero_tpu_torch.ops._build import kernel_attributes
+
+    assert kernel_attributes("tree_step", a, sims + 1)["dynamic_smem"] <= 232_448
+    trees, m0, depth = _wide_b1_search(a, sims, regime, 64, 80 + a % 7 + sims, dev="cuda")
+    assert depth >= 2
+    if regime == "board":
+        assert int(trees.gumbel_sample_size.max()) < m0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sims", [16, 200])
+@pytest.mark.parametrize("a", [385, 801, 3040])
+def test_tree_step_v2_above_384_actions_matches_plain(a, sims):
+    """The v2 tree step at A = 385, 801 and 3040, capacity 17 and the
+    staged 65 -> 129 -> 201, B = 64: the wide kernel against the plain
+    version at every step, with terminal leaves revisited."""
+    _need_card()
+    assert _wide_b2_search(a, sims, 64, 90 + a % 5 + sims, dev="cuda") > 0
+
+
+@pytest.mark.gpu
+def test_shared_memory_ceilings():
+    """On the card, the blocks' shared memory as the kernels' launchers size
+    it: up to 384 actions the register kernel's four warps (5N + A +
+    (3N + 3) / 4 floats each); above, the wide kernel's warps, as many as fit
+    the 232,448 bytes a Hopper block may hold (at most four), with a row
+    staged in 3A + A/4 more floats; the ceiling at N = 17 lies near A =
+    17,800, and past it the wrapper raises ValueError. B2's block grows with
+    its capacity only, to capacity 2767."""
+    _need_card()
+    from minizero_tpu_torch.ops import tree_kernel
+    from minizero_tpu_torch.ops._build import kernel_attributes
+    from minizero_tpu_torch.search import mcts
+
+    def b1(n, a):
+        return kernel_attributes("tree_step", a, n)["dynamic_smem"]
+
+    def b2(cap):
+        return kernel_attributes("tree_step_v2", 400, cap)["dynamic_smem"]
+
+    limit = 232_448
+    assert b1(17, 82) == 16 * (5 * 17 + 82 + 13)
+    assert b1(17, 384) == 16 * (5 * 17 + 384 + 13)
+    per_warp = 4 * (5 * 17 + 3 * 385 + (51 + 385 + 3) // 4)
+    assert b1(17, 385) == 4 * per_warp
+    for n, a in ((17, 3040), (201, 3040), (801, 3040), (17, 17_800)):
+        assert b1(n, a) <= limit, (n, a)
+    per_warp = 4 * (5 * 201 + 3 * 3040 + (603 + 3040 + 3) // 4)
+    assert b1(201, 3040) == min(4, limit // per_warp) * per_warp
+    per_warp = 4 * (5 * 801 + 3 * 3040 + (2403 + 3040 + 3) // 4)
+    assert b1(801, 3040) == 4 * per_warp
+    with pytest.raises(ValueError):
+        b1(17, 17_900)
+    assert b2(201) == 16 * (5 * 201 + 51) <= limit
+    assert b2(2767) <= limit
+    with pytest.raises(ValueError):
+        b2(2768)
+    spec = mcts.SearchSpec(action_size=17_900, num_simulations=16, use_gumbel=True,
+                           use_gumbel_noise=False, use_dirichlet_noise=False)
+    dev = torch.device("cuda")
+    tree = mcts.init_tree(spec, torch.ones((1,), dtype=torch.int32, device=dev))
+    sel = mcts.empty_selection(spec, 1, dev)
+    leaf = (torch.zeros((1, 17_900), device=dev), torch.zeros((1, 17_900), device=dev),
+            torch.ones((1, 17_900), dtype=torch.bool, device=dev),
+            torch.zeros((1,), dtype=torch.bool, device=dev), torch.zeros((1,), device=dev),
+            torch.ones((1,), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="shared memory"):
+        tree_kernel.fused_tree_step(spec, tree, sel, *leaf, 0, 0)
 
 
 @pytest.mark.gpu
@@ -811,6 +966,56 @@ def _integer_net(spec, seed):
     import chip_smoke
 
     return chip_smoke.integer_net(spec, seed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env_name,algo,over", [
+    ("othello", "gaz", {}), ("nogo", "gaz", {}),
+    ("killallgo", "gaz", {"env_killallgo_use_seki": True}), ("clobber", "gaz", {}),
+    ("clobber", "az", {"actor_num_simulation": 50}), ("gomoku", "gaz", {}),
+    ("outer_open_gomoku", "gaz", {}), ("hex", "gaz", {})])
+def test_new_family_move_on_card_matches_cpu(env_name, algo, over):
+    """One move of each family ported after Go and TicTacToe at B=32 on the card and
+    on the CPU from the same random openings (integer-exact net, float32,
+    noise and rotation off): actions, stepped states, terminal flags and
+    scores equal; policy targets within 1e-4, root values within 1e-5.
+    Clobber's 400 actions take the wide kernels: B1 (gaz) and, with az
+    n=50, B2 and B3 on the large-N loop."""
+    _need_card()
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
+    from minizero_tpu_torch.ops.tree_kernel_v2 import fused_tree_step_v2
+    from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
+
+    small = dict(algorithm_preset(algo))
+    small.update(actor_use_gumbel_noise=False, actor_use_dirichlet_noise=False,
+                 actor_use_random_rotation_features=False, actor_select_action_by_count=True,
+                 **over)
+    cfg = default_config(env_name, **small)
+    env = make_env(cfg)
+    gpu = SelfPlayEngine(env, cfg, _integer_net(env.spec, 3), use_bf16=False, device="cuda")
+    cpu = SelfPlayEngine(env, cfg, _integer_net(env.spec, 3), use_bf16=False, device="cpu")
+    assert gpu.use_tree_kernel_v2 == (algo == "az")
+    gs, cs = gpu.init_batch(32), cpu.init_batch(32)
+    rng = np.random.default_rng(4)
+    for _ in range(3):  # distinct random openings, the same on both devices
+        legal = env.legal_mask(cs).numpy()
+        a = torch.from_numpy((rng.random(legal.shape) * legal).argmax(-1).astype(np.int32))
+        gs, cs = env.step(gs, a.cuda()), env.step(cs, a)
+    before = (fused_tree_step.launches, fused_tree_step_v2.launches)
+    go, co = gpu.move(gs), cpu.move(cs)
+    torch.cuda.synchronize()
+    n = cfg.actor_num_simulation + 1
+    assert (fused_tree_step.launches - before[0], fused_tree_step_v2.launches - before[1]) == (
+        (0, n) if algo == "az" else (n, 0))
+    assert torch.equal(go.action.cpu(), co.action)
+    for name in ("done", "eval_score", "turn"):
+        assert torch.equal(getattr(go, name).cpu(), getattr(co, name)), name
+    for f in dataclasses.fields(co.states):
+        assert torch.equal(getattr(go.states, f.name).cpu(), getattr(co.states, f.name)), f.name
+    torch.testing.assert_close(go.policy_target.cpu(), co.policy_target, rtol=0, atol=1e-4)
+    torch.testing.assert_close(go.root_value.cpu(), co.root_value, rtol=0, atol=1e-5)
 
 
 def _console_cfg(**over):
