@@ -7,8 +7,10 @@ full width, with 1 x 256 nets made from a seed and bf16 inference, then one
 whole zero iteration (self-play, records, replay, SGD, checkpoint) of the
 flagship and of Gumbel MuZero, then the flagship run's eval match, GTP
 console and the other CLI modes, then the tree steps past 384 actions and
-the families Othello, NoGo, Kill-All-Go, Clobber, Gomoku and Hex, and holds
-every CUDA kernel of them against its plain PyTorch version on the card:
+the families Othello, NoGo, Kill-All-Go, Clobber, Gomoku and Hex, then 2048
+(with its trained net), Tetris Block Puzzle, Rubik's cube, Connect6, Dots
+and Boxes, Breakthrough, ConHex and Havannah, and holds every CUDA kernel
+of them against its plain PyTorch version on the card:
 
 - the flagship Go 9x9 Gumbel AlphaZero path, n=16, 1024 games (tree step
   B1, ``csrc/tree_step.cu``, board regime);
@@ -80,6 +82,20 @@ Phases:
      at B=1024 from seeded 1 x 256 nets, one move with every launch beside
      its plain version, then 8 moves of ``move_scan`` with exact launch
      counts and every action legal.
+  9. the stochastic puzzles and the rest of group 3: 9a 2048 gmz n=16 with
+     the trained ``runs/p2048_gmz_r5`` net of ``minizero_tpu_torch/assets/``
+     (B1's board regime with value rescale: the board-game MuZero net has
+     no reward head), one move checked, ``move_scan`` of 8 moves, then 1024
+     whole games from the same boards with the trained net and with a
+     seeded init, the trained net's mean return at least 1.5x the init's;
+     9b one 2048 zero iteration at that run's recipe (512 games in
+     lock-step, 200 SGD steps at batch 1024; records parsed back with their
+     rewards, a checkpoint reloaded, SGD ms/step and the step's idle
+     share); 9c 2048 gaz n=16 (AlphaZero with the env's rewards in the
+     tree: B1'); 9d Tetris Block Puzzle gmz and gaz n=16 (A=801, B1's wide
+     kernel; gaz in its reward regime with the Gumbel root); 9e Rubik's,
+     Connect6, Dots and Boxes, Breakthrough, ConHex and Havannah gaz n=16:
+     each 1 checked move, 1 warm-up and 8 moves of ``move_scan`` as in 8c.
 
 Prints one progress line per phase, then a JSON line of kernel numbers, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -615,10 +631,13 @@ def tree_step_v2_numbers(kept, reps: int = 20):
 def integer_net(spec, seed: int):
     """A linear policy/value net with small integer weights: its logits are
     sums of integers below 2^24, exact in float32 in any order, so the card
-    and the CPU evaluate it identically (up to ~1 ulp in the softmax)."""
+    and the CPU evaluate it identically (up to ~1 ulp in the softmax). With
+    a discrete value (2048, Tetris) the value is one of 8 bins picked by an
+    integer sum."""
     from torch import nn
 
     c, h, w, a = spec.num_input_channels, spec.input_height, spec.input_width, spec.action_size
+    d = spec.discrete_value_size
 
     class IntegerNet(nn.Module):
         def __init__(self):
@@ -633,7 +652,12 @@ def integer_net(spec, seed: int):
         def forward(self, state):
             x = state.float().reshape(state.shape[0], -1)
             logits = (x @ self.wp) / 32.0 + self.offset
-            value = torch.clamp((x @ self.wv) / 64.0, -0.96875, 0.96875)
+            t = x @ self.wv
+            if d > 1:  # a score's distribution: one bin of d // 2 - 4 .. d // 2 + 3
+                idx = (t[:, 0] - 8.0 * torch.floor(t[:, 0] / 8.0)).long() + (d // 2 - 4)
+                value = (idx[:, None] == torch.arange(d, device=t.device)).float()
+            else:
+                value = torch.clamp(t / 64.0, -0.96875, 0.96875)
             return {"policy_logit": logits, "policy": torch.softmax(logits, -1), "value": value}
 
     return IntegerNet()
@@ -687,7 +711,7 @@ def integer_muzero_net(spec, seed: int):
             logits = (hidden @ self.wp) / 256.0 + self.offset
             out = {"policy_logit": logits, "policy": torch.softmax(logits, -1),
                    "hidden_state": hidden}
-            if atari_mode:
+            if d > 1:
                 out["value"] = self._bins(hidden @ self.wvd)
             else:
                 out["value"] = torch.clamp((hidden @ self.wv) / 16384.0, -0.96875, 0.96875)[:, None]
@@ -744,22 +768,40 @@ def profile_run(fn, ms_per_run: float, kernel_names=(), what: str = "move"):
 
 def check_scan(engine, start_states, scan, end_states, moves: int, what: str) -> None:
     """Every action of a ``move_scan`` was legal where it was played, the
-    replayed boards equal the scan's, and the policy targets and root
-    values are finite distributions and values in [-1, 1]."""
+    replayed states equal the scan's, and the policy targets and root
+    values are finite distributions and values (in [-1, 1] for games won
+    or lost). Where the env starts its games at random (2048, Tetris,
+    Rubik's), a slot reset in the scan drew from the engine's generator
+    between the searches' draws: such a slot is followed up to its reset."""
+    from minizero_tpu_torch.envs.base import Env
+
     env = engine.env
     st = start_states
+    rows = torch.arange(BATCH, device=scan.action.device)
+    random_init = type(env).init_random is not Env.init_random
+    live = torch.ones((BATCH,), dtype=torch.bool, device=scan.action.device)
     for mv in range(moves):
         a = scan.action[mv].long()
-        if not bool(env.legal_mask(st)[torch.arange(BATCH, device=a.device), a].all()):
+        if not bool((env.legal_mask(st)[rows, a] | ~live).all()):
             fail(f"{what}: an illegal action at move {mv}")
-        st = engine.reset_slots(env.step(st, a), scan.resigned[mv] | scan.ended[mv])
-    if not torch.equal(st.board, end_states.board):
-        fail(f"{what}: replayed boards differ from move_scan's states")
+        reset = scan.resigned[mv] | scan.ended[mv]
+        st = engine.reset_slots(env.step(st, a), reset)
+        if random_init:
+            live &= ~reset
+    for f in dataclasses.fields(st):
+        got, want = getattr(st, f.name)[live], getattr(end_states, f.name)[live]
+        if not torch.equal(got, want):
+            fail(f"{what}: replayed states differ from move_scan's in {f.name}")
+    if int(live.sum()) < BATCH // 2:
+        fail(f"{what}: only {int(live.sum())} games followed through the scan")
     pt = scan.policy_target.float()
     if not (bool(torch.isfinite(pt).all()) and bool(torch.isfinite(scan.root_value).all())):
         fail(f"{what}: non-finite policy target or root value")
-    if float((pt.sum(-1) - 1.0).abs().max()) > 1e-2 or float(scan.root_value.abs().max()) > 1.0:
-        fail(f"{what}: policy targets do not sum to 1 or root values leave [-1, 1]")
+    if float((pt.sum(-1) - 1.0).abs().max()) > 1e-2:
+        fail(f"{what}: policy targets do not sum to 1")
+    # win / loss outcomes bound the root values; a score (2048, Tetris) does not
+    if env.spec.discrete_value_size == 1 and float(scan.root_value.abs().max()) > 1.0:
+        fail(f"{what}: root values leave [-1, 1]")
 
 
 def small_search_card_vs_cpu(algo: str, over: dict, moves: int, what: str) -> str:
@@ -908,7 +950,8 @@ def same_tensors(a, b) -> bool:
 
 
 def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int = 0,
-                   run_dir: str = "", env_name: str = "go") -> dict:
+                   run_dir: str = "", env_name: str = "go", games: int = ZERO_GAMES,
+                   steps: int = ZERO_STEPS, parallel: int = BATCH) -> dict:
     """One iteration of the zero loop at the flagship's widths: ``ZeroLoop``
     on the card (``algorithm_preset(algo)``, ``env_name`` (Go 9x9 by
     default) at its default size, 1 x 256, 1024 games in
@@ -920,7 +963,9 @@ def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int =
     ``codec_games``, the native codec against the plain writer on that many
     of the iteration's games. ``run_dir`` keeps the run (checkpoints,
     records) for later phases; by default it goes to a temporary directory
-    removed at the end. Returns the numbers and the config."""
+    removed at the end. ``games``, ``steps`` and ``parallel`` (games in
+    lock-step) cut another run's recipe. The records are parsed back to
+    their games' actions and rewards. Returns the numbers and the config."""
     import contextlib
 
     from minizero_tpu_torch import native
@@ -930,8 +975,8 @@ def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int =
     from minizero_tpu_torch.zero.loop import ZeroLoop
 
     over = dict(algorithm_preset(algo))
-    over.update(zero_num_parallel_games=BATCH, zero_num_games_per_iteration=ZERO_GAMES,
-                learner_batch_size=ZERO_BATCH, learner_training_step=ZERO_STEPS,
+    over.update(zero_num_parallel_games=parallel, zero_num_games_per_iteration=games,
+                learner_batch_size=ZERO_BATCH, learner_training_step=steps,
                 zero_end_iteration=1, program_seed=seed)
     cfg = default_config(env_name, **over)
     what = f"zero iteration ({env_name} {algo})"
@@ -956,7 +1001,7 @@ def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int =
                 engine.tree_step = fused_tree_step
 
         engine.move_scan = first_chunk_checked
-        timer = StepTimer(loop._train_step, SGD_TIMED_FROM, ZERO_STEPS)
+        timer = StepTimer(loop._train_step, SGD_TIMED_FROM, steps)
         loop._train_step = timer
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -980,26 +1025,29 @@ def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int =
         # records: exactly the target, each parsed back to the actions the
         # replay buffer holds
         lines = open(os.path.join(run_dir, "sgf", "1.sgf")).read().splitlines()
-        if len(lines) != ZERO_GAMES or len(loop.buffer) != ZERO_GAMES:
+        if len(lines) != games or len(loop.buffer) != games:
             fail(f"{what}: {len(lines)} record lines, {len(loop.buffer)} games in the buffer, "
-                 f"expected {ZERO_GAMES}")
+                 f"expected {games}")
         a_size = loop.env.spec.action_size
         for i, (line, rec) in enumerate(zip(lines, loop.buffer.games)):
-            if not np.array_equal(game_record_from_string(line, a_size)[1].actions, rec.actions):
-                fail(f"{what}: record line {i} does not parse back to its game's actions")
-        if loop.state.step != ZERO_STEPS or timer.calls != ZERO_STEPS:
+            parsed = game_record_from_string(line, a_size)[1]
+            if not (np.array_equal(parsed.actions, rec.actions)
+                    and np.array_equal(parsed.rewards, rec.rewards)):
+                fail(f"{what}: record line {i} does not parse back to its game's actions and "
+                     f"rewards")
+        if loop.state.step != steps or timer.calls != steps:
             fail(f"{what}: step counter {loop.state.step}, {timer.calls} train steps")
         op = open(os.path.join(run_dir, "op.log")).read().splitlines()
         logged = [{k: float(v) for k, v in re.findall(r"(\w+): (\S+)", ln.split(" lr: ")[-1])}
                   for ln in op]
-        if len(op) != ZERO_STEPS // cfg.learner_training_display_step or not all(
+        if len(op) != steps // cfg.learner_training_display_step or not all(
                 "loss" in d for d in logged):
             fail(f"{what}: {len(op)} op.log lines, or one without its loss")
         losses = [v for d in logged for k, v in d.items() if k.startswith("loss")]
         if not all(np.isfinite(losses)):
             fail(f"{what}: a logged loss is not finite: {op}")
         train_log = open(os.path.join(run_dir, "Training.log")).read()
-        for needle in ("[SelfPlay Timing] chunks:", f"Optimization_Done {ZERO_STEPS}",
+        for needle in ("[SelfPlay Timing] chunks:", f"Optimization_Done {steps}",
                        "[Iteration] 1: self-play"):
             if needle not in train_log:
                 fail(f"{what}: Training.log has no {needle!r} line")
@@ -1013,7 +1061,7 @@ def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int =
         fresh.load_checkpoint(path)
         torch.cuda.synchronize()
         out["load_s"] = time.perf_counter() - t
-        if not (fresh.state.step == ZERO_STEPS
+        if not (fresh.state.step == steps
                 and same_tensors(loop.network.state_dict(), fresh.network.state_dict())
                 and same_tensors(loop.state.optimizer.state_dict(),
                                  fresh.state.optimizer.state_dict())):
@@ -1050,10 +1098,11 @@ def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int =
                     fail(f"codec: game {i}: the native and the plain record strings differ")
             out["codec"] = (codec_games, t_native, t_plain, sum(len(x) for x in lines[:codec_games]))
         out.update(
-            cfg=cfg, games=ZERO_GAMES, moves=moves, launches=launches["tree_step"], checked=check.calls,
+            cfg=cfg, games=games, steps=steps, parallel=parallel, moves=moves, launches=launches["tree_step"], checked=check.calls,
             check_err=check.max_abs_err, selfplay_s=row["selfplay_s"],
             optimize_s=row["optimize_s"], timing=timing,
             ms_per_step=timer.ms_per_step(), lengths=[r.length for r in loop.buffer.games],
+            results=[float(r.result) for r in loop.buffer.games],
             first_loss=logged[0]["loss"], last_loss=logged[-1]["loss"],
             record_mib=os.path.getsize(os.path.join(run_dir, "sgf", "1.sgf")) / 2**20)
         loop.close()
@@ -1065,19 +1114,19 @@ def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int =
 
 def zero_line(z: dict) -> str:
     t = z["timing"]
-    env_steps = z["moves"] * BATCH
+    env_steps = z["moves"] * z["parallel"]
     lengths = np.asarray(z["lengths"])
     return (f"{z['games']} games in {z['selfplay_s']:.2f} s ({z['games'] / z['selfplay_s']:.1f} "
             f"games/s, {env_steps / z['selfplay_s']:.1f} env-steps/s over {z['moves']} moves x "
-            f"{BATCH} slots; game length {lengths.min()}-{lengths.max()}, mean "
+            f"{z['parallel']} slots; game length {lengths.min()}-{lengths.max()}, mean "
             f"{lengths.mean():.1f}); [SelfPlay Timing] chunks {t['chunks']} x "
             f"{t['moves_per_chunk']} moves, dispatch {t['dispatch_s']:.2f} s, collect "
             f"{t['collect_s']:.2f} s, records {t['records_s']:.2f} s; B1 launches {z['launches']} "
             f"(= {z['moves']} moves x 17), {z['checked']} of them beside the plain version "
-            f"(max |diff| {z['check_err']:.3g}); optimize {ZERO_STEPS} steps at batch "
+            f"(max |diff| {z['check_err']:.3g}); optimize {z['steps']} steps at batch "
             f"{ZERO_BATCH} in {z['optimize_s']:.2f} s wall, {z['ms_per_step']:.3f} ms/step = "
             f"{1e3 / z['ms_per_step']:.1f} SGD steps/s by CUDA events over steps "
-            f"{SGD_TIMED_FROM}-{ZERO_STEPS}; loss {z['first_loss']:.4f} (first op.log line) -> "
+            f"{SGD_TIMED_FROM}-{z['steps']}; loss {z['first_loss']:.4f} (first op.log line) -> "
             f"{z['last_loss']:.4f} (last); records {z['record_mib']:.1f} MiB; checkpoint "
             f"{z['ckpt_mib']:.2f} MiB, save {z['save_s']:.3f} s, load {z['load_s']:.3f} s; "
             f"iteration wall {z['wall_s']:.2f} s; peak device memory {z['peak_gib']:.2f} GiB; "
@@ -1380,6 +1429,16 @@ CLOBBER_AZ_SIMS = 50
 CLOBBER_AZ_MOVES = 4
 OTHELLO_NPZ = os.path.join("minizero_tpu_torch", "assets", "oth8_gaz_r5_iter60000.npz")
 OTHELLO_TRAINED_STEP = 60000
+# phase 9: the trained 2048 net (runs/p2048_gmz_r5's last checkpoint), the
+# cap on a whole game's moves (the JAX run's longest games took 266-279),
+# the trained net's least edge over a seeded init in mean return, and the
+# run's recipe for one zero iteration (512 games in lock-step, 200 SGD
+# steps an iteration)
+P2048_NPZ = os.path.join("minizero_tpu_torch", "assets", "p2048_gmz_r5_iter30000.npz")
+WHOLE_GAME_CAP = 4000
+TRAINED_EDGE = 1.5
+P2048_GAMES = 512
+P2048_STEPS = 200
 
 
 def _tree_bytes(x) -> int:
@@ -1524,7 +1583,10 @@ def family_path(env_name: str, algo: str, over: dict, moves: int, seed: int, zer
     the large-N loop every row gather) beside its plain version, one
     warm-up move, then ``move_scan`` of ``moves`` moves with every launch
     counter 0 just before and read just after, each action's legality,
-    ms/move and env-steps/s; the tree step's time at the kept state."""
+    ms/move and env-steps/s; the tree step's time at the kept state. The
+    checked move tells the tree step's regime: every step of a search on
+    an env with rewards (2048, Tetris AlphaZero) runs B1', every other
+    B1 (or B2); a MuZero engine's search takes the same tree step."""
     from minizero_tpu_torch.config import algorithm_preset, default_config
     from minizero_tpu_torch.envs import make_env
     from minizero_tpu_torch.models.factory import create_network, init_network
@@ -1557,8 +1619,11 @@ def family_path(env_name: str, algo: str, over: dict, moves: int, seed: int, zer
     check_s = time.perf_counter() - t
     engine.tree_step, engine.tree_step_v2, engine.gather_rows = (fused_tree_step,
                                                                  fused_tree_step_v2, gather_rows)
-    if check.calls != n + 1 or check.reward_calls or (gcheck and gcheck.calls != n):
-        fail(f"{what}: {check.calls} tree steps checked in a move")
+    rewards = check.reward_calls == check.calls
+    if (check.calls != n + 1 or check.reward_calls not in (0, check.calls)
+            or (gcheck and gcheck.calls != n) or rewards != engine.env_rewards and not engine.is_muzero):
+        fail(f"{what}: {check.calls} tree steps checked in a move ({check.reward_calls} in the "
+             f"reward regime)")
     warm = engine.move(out.states)
     torch.cuda.synchronize()
     if hasattr(env, "benson_checks"):
@@ -1573,8 +1638,9 @@ def family_path(env_name: str, algo: str, over: dict, moves: int, seed: int, zer
         want = {"tree_step": 0, "tree_step_rewards": 0, "tree_step_v2": moves * (n + 1),
                 "gather_rows": moves * n, "gather_rows_aligned": moves * n}
     else:
-        want = {"tree_step": moves * (n + 1), "tree_step_rewards": 0, "tree_step_v2": 0,
+        want = {"tree_step": 0, "tree_step_rewards": 0, "tree_step_v2": 0,
                 "gather_rows": 0, "gather_rows_aligned": 0}
+        want["tree_step_rewards" if rewards else "tree_step"] = moves * (n + 1)
     if launches != want:
         fail(f"{what}: launches {launches}, expected {want}")
     check_scan(engine, warm.states, scan, end_states, moves, what)
@@ -1583,7 +1649,7 @@ def family_path(env_name: str, algo: str, over: dict, moves: int, seed: int, zer
            "ms_per_move": 1e3 * elapsed / moves, "steps_per_s": BATCH * moves / elapsed,
            "launches": launches, "checked": check.calls, "err": check.max_abs_err,
            "check_s": check_s, "finished": int((scan.resigned | scan.ended).sum()),
-           "cfg": cfg}
+           "cfg": cfg, "rewards": rewards, "kernel": "tree_step_rewards" if rewards else "tree_step"}
     if v2:
         kept = check.kept[n // 2]
         res["b2"] = tree_step_v2_numbers(kept, _timing_reps(kept[1]))
@@ -1613,8 +1679,9 @@ def family_line(r: dict) -> str:
             f"launches {r['launches']}, all actions legal, {r['finished']} games finished")
     if "b1" in r:
         k, p, bound, by, byts, _, depth = r["b1"]
-        line += (f"; B1 {k:.5f} ms, plain {p:.3f} ms, bound {bound:.6f} ms ({by}, {byts} bytes), "
-                 f"deepest walk {depth}")
+        b1 = "B1'" if r["rewards"] else "B1"
+        line += (f"; {b1} {k:.5f} ms, plain {p:.3f} ms, bound {bound:.6f} ms ({by}, {byts} "
+                 f"bytes), deepest walk {depth}")
     else:
         k, p, bound, by, byts, _, depth = r["b2"]
         k3, p3, b3, l3, width = r["b3"]
@@ -1725,6 +1792,121 @@ def phase8(zero_counts, counts) -> dict:
                      f"scan ({r['host_checks'] / moves:.1f} a move, use_seki=True)")
         out["paths"][f"{env_name}_{algo}"] = r
         log(f"phase {label} {family_line(r)}{extra}; in {time.perf_counter() - t:.2f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: 2048 (its trained Gumbel MuZero net, a zero iteration, AlphaZero
+# with the env's rewards in the tree), Tetris Block Puzzle on the wide
+# kernel, and Rubik's, Connect6, Dots and Boxes, Breakthrough, ConHex and
+# Havannah at full width
+# ---------------------------------------------------------------------------
+
+def whole_games(engine, states, what: str) -> dict:
+    """Play every game of ``states`` to its end with ``engine.move`` (a
+    finished game's slot keeps moving, unread): each game's return (its
+    eval score when it ended) and length, and the wall time."""
+    env = engine.env
+    b = env.turn(states).shape[0]
+    dev = engine.device
+    done = env.is_terminal(states)
+    returns = torch.where(done, env.eval_score(states), 0.0)
+    lengths = torch.zeros((b,), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    moves = 0
+    while not bool(done.all()):
+        if moves >= WHOLE_GAME_CAP:
+            fail(f"{what}: {int((~done).sum())} games still running after {moves} moves")
+        out = engine.move(states)
+        moves += 1
+        ended = out.done & ~done
+        returns = torch.where(ended, out.eval_score, returns)
+        lengths = torch.where(ended, moves, lengths)
+        done |= out.done
+        states = out.states
+    torch.cuda.synchronize()
+    r, n = returns.cpu().numpy(), lengths.cpu().numpy()
+    if not (np.isfinite(r).all() and (r >= 0).all() and (n > 0).all()):
+        fail(f"{what}: returns or lengths out of range")
+    return {"mean": float(r.mean()), "min": float(r.min()), "max": float(r.max()),
+            "len_mean": float(n.mean()), "len_min": int(n.min()), "len_max": int(n.max()),
+            "moves": moves, "seconds": time.perf_counter() - t}
+
+
+def games_line(g: dict) -> str:
+    return (f"return mean {g['mean']:.1f} (min {g['min']:.0f}, max {g['max']:.0f}), length mean "
+            f"{g['len_mean']:.1f} (min {g['len_min']}, max {g['len_max']}); {g['moves']} moves "
+            f"in {g['seconds']:.2f} s")
+
+
+def phase9(zero_counts, counts) -> dict:
+    """Phase 9 (see the module's docstring); returns the paths' numbers."""
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.models.factory import create_network, init_network
+    from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
+    from minizero_tpu_torch.weights import from_jax_muzero_variables, load_variables_npz
+
+    out = {}
+    # ---- 9a. 2048 gmz n=16 with the trained net ------------------------------
+    t = time.perf_counter()
+    cfg = default_config("puzzle2048", **algorithm_preset("gmz"))
+    env = make_env(cfg)
+    trained = create_network(cfg, env.spec)
+    trained.load_state_dict(from_jax_muzero_variables(
+        load_variables_npz(os.path.join(ROOT, P2048_NPZ)), hidden_hw=16))
+    trained_sd = {k: v.clone() for k, v in trained.state_dict().items()}
+    r = family_path("puzzle2048", "gmz", {}, FAMILY_MOVES, 50, zero_counts, counts, trained_sd)
+    out["puzzle2048_gmz"] = r
+    log(f"phase 9a {family_line(r)} (trained net {P2048_NPZ}, value rescale "
+        f"{r['cfg'].actor_mcts_value_rescale}; the board-game MuZero net has no reward head, "
+        f"so the search runs B1's board regime)")
+    seeded = init_network(create_network(cfg, env.spec), seed=51)
+    played = {}
+    for label, net in (("trained", trained), ("seeded init", seeded)):
+        engine = SelfPlayEngine(env, cfg, net, use_bf16=True, device="cuda", seed=52)
+        start = engine.init_batch(BATCH, torch.Generator(device="cuda").manual_seed(53))
+        played[label] = whole_games(engine, start, f"2048 whole games ({label})")
+        del engine
+        log(f"phase 9a whole games (2048 gmz n=16, {label} net, {BATCH} games from the same "
+            f"initial boards): {games_line(played[label])}")
+    out["puzzle2048_games"] = played
+    edge = played["trained"]["mean"] / max(played["seeded init"]["mean"], 1e-9)
+    if not edge >= TRAINED_EDGE:
+        fail(f"2048: the trained net's mean return is {edge:.2f}x the seeded init's "
+             f"(< {TRAINED_EDGE})")
+    log(f"phase 9a trained / seeded mean return {edge:.2f} (>= {TRAINED_EDGE}); in "
+        f"{time.perf_counter() - t:.2f} s")
+    del trained, seeded
+    torch.cuda.empty_cache()
+
+    # ---- 9b. one 2048 zero iteration at runs/p2048_gmz_r5's recipe ---------
+    t = time.perf_counter()
+    z = zero_iteration("gmz", 54, zero_counts, counts, env_name="puzzle2048", games=P2048_GAMES,
+                       steps=P2048_STEPS, parallel=P2048_GAMES)
+    res = np.asarray(z["results"])
+    out["puzzle2048_zero"] = z
+    log(f"phase 9b zero iteration (2048 gmz n=16, 1x256, the runs/p2048_gmz_r5 recipe: "
+        f"{P2048_GAMES} games in lock-step, {P2048_STEPS} SGD steps; records parsed back with "
+        f"their rewards): {zero_line(z)}; returns mean {res.mean():.1f} (min {res.min():.0f}, "
+        f"max {res.max():.0f}); phase in {time.perf_counter() - t:.2f} s")
+
+    # ---- 9c-9e. 2048 gaz, Tetris, and the rest of group 3 ------------------
+    for label, env_name, algo, over, seed in (
+            ("9c", "puzzle2048", "gaz", {}, 55),
+            ("9d", "tetrisblockpuzzle", "gmz", {}, 56),
+            ("9d", "tetrisblockpuzzle", "gaz", {}, 57),
+            ("9e", "rubiks", "gaz", {}, 58),
+            ("9e", "connect6", "gaz", {}, 59),
+            ("9e", "dotsandboxes", "gaz", {}, 60),
+            ("9e", "breakthrough", "gaz", {}, 61),
+            ("9e", "conhex", "gaz", {}, 62),
+            ("9e", "havannah", "gaz", {}, 63)):
+        t = time.perf_counter()
+        r = family_path(env_name, algo, over, FAMILY_MOVES, seed, zero_counts, counts)
+        out[f"{env_name}_{algo}"] = r
+        log(f"phase {label} {family_line(r)}; in {time.perf_counter() - t:.2f} s")
     return out
 
 
@@ -2219,8 +2401,27 @@ def main() -> None:
         "plain_ms": ca["b3"][1], "bound_ms": ca["b3"][2], "bound_by": "bytes",
         "library_ms": ca["b3"][3],
     }]
+    # ---- 9. 2048, Tetris Block Puzzle and the rest of group 3 ---------------
+    t = time.perf_counter()
+    p9 = phase9(zero_counts, counts)
+    log(f"phase 9 done in {time.perf_counter() - t:.2f} s")
+    for key, name in (("puzzle2048_gmz", "puzzle2048 gmz n=16, trained net, A=4, N=17"),
+                      ("puzzle2048_gaz", "puzzle2048 gaz n=16, A=4, N=17"),
+                      ("tetrisblockpuzzle_gmz", "tetrisblockpuzzle gmz n=16, A=801, N=17"),
+                      ("tetrisblockpuzzle_gaz", "tetrisblockpuzzle gaz n=16, A=801, N=17")):
+        r = p9[key]
+        wide = "_wide" if r["A"] > 384 else ""
+        wide_rows.append({
+            "name": f"{r['kernel'].replace('tree_step', 'tree_step' + wide)} ({name})",
+            "route": "cuda", "source": "minizero_tpu_torch/csrc/tree_step.cu",
+            "replaces": "minizero_tpu/ops/tree_kernel.py:136" + (" (reward regime)"
+                                                                 if r["rewards"] else ""),
+            "launches": r["launches"][r["kernel"]], "max_abs_err": r["err"], "ms": r["b1"][0],
+            "plain_ms": r["b1"][1], "bound_ms": r["b1"][2], "bound_by": r["b1"][3],
+            "library_ms": None})
     families = {key: {"ms_per_move": r["ms_per_move"], "env_steps_per_s": r["steps_per_s"]}
-                for key, r in p8["paths"].items() if "ms_per_move" in r}
+                for key, r in {**p8["paths"], **p9}.items() if "ms_per_move" in r}
+    pz, pg = p9["puzzle2048_zero"], p9["puzzle2048_games"]
     oz, oe = p8["paths"]["othello_zero"], p8["paths"]["othello_eval"]
 
     result = {"kernels": [{
@@ -2294,7 +2495,11 @@ def main() -> None:
         "families": families, "othello_zero_sgd_steps_per_s": 1e3 / oz["ms_per_step"],
         "othello_zero_selfplay_s": oz["selfplay_s"], "othello_eval_wld": list(oe["wld"]),
         "othello_eval_ms_per_ply": 1e3 * oe["seconds"] / oe["plies"],
-        "othello_eval_games_per_s": EVAL_GAMES / oe["seconds"]}
+        "othello_eval_games_per_s": EVAL_GAMES / oe["seconds"],
+        "puzzle2048_trained_mean_return": pg["trained"]["mean"],
+        "puzzle2048_seeded_mean_return": pg["seeded init"]["mean"],
+        "puzzle2048_zero_sgd_steps_per_s": 1e3 / pz["ms_per_step"],
+        "puzzle2048_zero_selfplay_s": pz["selfplay_s"]}
     print(json.dumps(result), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -3,8 +3,10 @@
 ``env_defaults`` keeps the per-env config defaults of every game family, so
 ``config.default_config`` gives the same configs as the JAX package. Of the
 envs themselves Go, TicTacToe, Othello, NoGo, Kill-All-Go, Clobber, Gomoku
-(with Outer-Open Gomoku) and Hex are ported; ``make_env`` raises
-``NotImplementedError`` for the others (ROADMAP.md, queue A, lists them).
+(with Outer-Open Gomoku), Hex, Connect6, Breakthrough, Havannah, ConHex,
+Dots and Boxes, Rubik's cube, 2048 and Tetris Block Puzzle are ported;
+``make_env`` raises ``NotImplementedError`` for the others (ROADMAP.md,
+queue A, lists them).
 """
 
 from __future__ import annotations
@@ -68,7 +70,7 @@ _TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]
         {"env_board_size": 11, "actor_dirichlet_noise_alpha": 0.03},
     ),
     "connect6": (
-        None,
+        "minizero_tpu_torch.envs.connect6",
         "Connect6Env",
         lambda cfg: {"board_size": cfg.env_board_size or 19},
         {"env_board_size": 19, "actor_dirichlet_noise_alpha": 0.03},
@@ -87,13 +89,13 @@ _TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]
         {"env_board_size": 10, "actor_dirichlet_noise_alpha": 0.03},
     ),
     "breakthrough": (
-        None,
+        "minizero_tpu_torch.envs.breakthrough",
         "BreakthroughEnv",
         lambda cfg: {"board_size": cfg.env_board_size or 8},
         {"env_board_size": 8, "actor_dirichlet_noise_alpha": 0.03},
     ),
     "havannah": (
-        None,
+        "minizero_tpu_torch.envs.havannah",
         "HavannahEnv",
         lambda cfg: {
             "board_size": cfg.env_board_size or 8,
@@ -102,7 +104,7 @@ _TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]
         {"env_board_size": 8, "actor_dirichlet_noise_alpha": 0.03},
     ),
     "conhex": (
-        None,
+        "minizero_tpu_torch.envs.conhex",
         "ConHexEnv",
         lambda cfg: {"use_swap_rule": cfg.env_conhex_use_swap_rule},
         {"env_board_size": 9, "actor_dirichlet_noise_alpha": 0.03},
@@ -135,7 +137,7 @@ _TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]
         {"env_board_size": 8, "actor_dirichlet_noise_alpha": 0.03},
     ),
     "puzzle2048": (
-        None,
+        "minizero_tpu_torch.envs.puzzle2048",
         "Puzzle2048Env",
         lambda cfg: {},
         # the reference trains 2048 with gumbel muzero + n-step returns
@@ -150,7 +152,7 @@ _TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]
         },
     ),
     "tetrisblockpuzzle": (
-        None,
+        "minizero_tpu_torch.envs.tetrisblockpuzzle",
         "TetrisBlockPuzzleEnv",
         lambda cfg: {
             "num_holding_block": cfg.env_tetris_block_puzzle_num_holding_block,
@@ -166,7 +168,7 @@ _TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]
         },
     ),
     "rubiks": (
-        None,
+        "minizero_tpu_torch.envs.rubiks",
         "RubiksEnv",
         lambda cfg: {
             "board_size": cfg.env_board_size or 3,
@@ -194,7 +196,7 @@ _TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]
         },
     ),
     "dotsandboxes": (
-        None,
+        "minizero_tpu_torch.envs.dotsandboxes",
         "DotsAndBoxesEnv",
         lambda cfg: {"board_size": cfg.env_board_size or 9},
         # setUpEnv: board 9 (dotsandboxes.h:77); AlphaZero-only like the

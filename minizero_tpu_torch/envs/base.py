@@ -65,6 +65,15 @@ class Env:
 
     spec: EnvSpec
 
+    def _tables(self, device) -> dict:
+        """The env's numpy tables ``self._np`` as tensors on ``device``,
+        uploaded once per device."""
+        by_device = self.__dict__.setdefault("_by_device", {})
+        key = str(device)
+        if key not in by_device:
+            by_device[key] = {k: torch.as_tensor(v, device=device) for k, v in self._np.items()}
+        return by_device[key]
+
     def init(self, batch_size: int, device=None) -> Any:
         """Initial states for ``batch_size`` games on ``device``: the CUDA
         card by default, the CPU only when asked for by name

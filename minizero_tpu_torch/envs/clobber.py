@@ -70,13 +70,6 @@ class ClobberEnv(Env):
             # even row -> player 1 on the odd columns, odd row -> on the even ones
             "start": np.where((rows + cols) % 2 == 1, 1, 2).astype(np.int8),
         }
-        self._by_device = {}
-
-    def _tables(self, device):
-        key = str(device)
-        if key not in self._by_device:
-            self._by_device[key] = {k: torch.as_tensor(v, device=device) for k, v in self._np.items()}
-        return self._by_device[key]
 
     def num_rotations(self) -> int:
         return 1  # the reference disables rotation for clobber (clobber.h:77-78)

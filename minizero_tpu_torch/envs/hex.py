@@ -70,13 +70,6 @@ class HexEnv(Env):
         self._np = {"nbr": nbr.astype(np.int64), "nbr_valid": valid,
                     "edge1_p1": cols == 0, "edge2_p1": cols == n - 1,  # left, right
                     "edge1_p2": rows == 0, "edge2_p2": rows == n - 1}  # top, bottom
-        self._by_device = {}
-
-    def _tables(self, device):
-        key = str(device)
-        if key not in self._by_device:
-            self._by_device[key] = {k: torch.as_tensor(v, device=device) for k, v in self._np.items()}
-        return self._by_device[key]
 
     def num_rotations(self) -> int:
         return 1  # no square symmetry (reference hex.h:61-62)

@@ -8,10 +8,13 @@ selected parent's state, steps the env, evaluates the leaf, then runs ONE
 fused tree step: the CUDA kernel on the card, its plain PyTorch version on
 the CPU. Three loops, dispatched as in the JAX engine:
 
-- AlphaZero trees with ``max_nodes < 48`` (e.g. Gumbel n=16): ``[B, N, A]``
-  trees on ``ops/tree_kernel.py`` (kernel B1), node states in
-  ``[B, N, ...]`` buffers beside the tree;
-- plain AlphaZero PUCT with ``max_nodes >= 48`` (e.g. n=200): node-indexed
+- AlphaZero trees with ``max_nodes < 48`` (e.g. Gumbel n=16), and on an
+  env with in-tree rewards (2048, Tetris) at any tree size: ``[B, N, A]``
+  trees on ``ops/tree_kernel.py`` (kernel B1; with the env's leaf rewards
+  in its reward regime, B1'), node states in ``[B, N, ...]`` buffers beside
+  the tree;
+- plain AlphaZero PUCT with ``max_nodes >= 48`` (e.g. n=200) on an env
+  without rewards: node-indexed
   packed trees on ``ops/tree_kernel_v2.py`` (kernel B2), node states packed
   into one ``[B, N, W]`` int32 blob (``ops/state_blob.py``) whose parent row
   is fetched by ``ops/gather_rows.py`` (kernel B3);
@@ -165,12 +168,16 @@ class SelfPlayEngine:
         self.spec = search_spec_from_config(cfg, env.spec, eval_mode=eval_mode,
                                             think_batch=think_batch)
         self.is_muzero = callable(getattr(network, "recurrent_inference", None))
-        if not self.is_muzero and type(env).reward is not Env.reward:
-            raise NotImplementedError("envs with in-tree rewards are not ported yet (ROADMAP.md)")
+        # an env with in-tree rewards (2048, Tetris) hands each leaf's reward
+        # to the tree step, which then runs its reward regime (B1'): the
+        # reward stored at the node, q = r + discount * mean, value rescale
+        self.env_rewards = type(env).reward is not Env.reward
         # large-N plain AlphaZero runs on the node-indexed v2 tree step (O(A)
         # per walk step); small trees (Gumbel n=16) stay on v1, and MuZero
-        # always does; think batches run on neither
-        self.use_tree_kernel_v2 = (not self.is_muzero and supports_fused_tree_step_v2(self.spec)
+        # always does, as do envs with rewards (v2 has no reward regime);
+        # think batches run on neither
+        self.use_tree_kernel_v2 = (not self.is_muzero and not self.env_rewards
+                                   and supports_fused_tree_step_v2(self.spec)
                                    and (self.spec.max_nodes >= 48 or _force_kernel_v2))
         self.use_rotation = (cfg.actor_use_random_rotation_features and not self.is_muzero
                              and env.num_rotations() > 1)
@@ -258,18 +265,20 @@ class SelfPlayEngine:
         return trees
 
     def _kernel_phase0(self, trees: Tree):
-        """Phase-0 (selection only) tree step on the freshly expanded root."""
+        """Phase-0 (selection only) tree step on the freshly expanded root,
+        in the regime of the search's other steps."""
         spec = self.spec
         batch = trees.visits.shape[0]
         dev = trees.visits.device
         zeros_f = torch.zeros((batch, spec.action_size), dtype=torch.float32, device=dev)
         zeros_b = torch.zeros((batch, spec.action_size), dtype=torch.bool, device=dev)
+        zero = torch.zeros((batch,), dtype=torch.float32, device=dev)
         sel0 = mcts.empty_selection(spec, batch, dev)
         return self.tree_step(
             spec, trees, sel0, zeros_f, zeros_f, zeros_b,
-            torch.zeros((batch,), dtype=torch.bool, device=dev),
-            torch.zeros((batch,), dtype=torch.float32, device=dev),
-            torch.ones((batch,), dtype=torch.int32, device=dev), 0, 0)
+            torch.zeros((batch,), dtype=torch.bool, device=dev), zero,
+            torch.ones((batch,), dtype=torch.int32, device=dev), 0, 0,
+            leaf_reward=zero if self.env_rewards else None)
 
     def _node_buffers(self, root_states):
         """``[B, N, ...]`` node-state buffers beside the tree (the JAX
@@ -311,7 +320,9 @@ class SelfPlayEngine:
         leaf_states, terminal, policy, logits, value, legal, turn = self._evaluate_leaves(
             map_state(lambda buf: buf[rows, parent], nodes), sel.action, generator)
         trees, sel = self.tree_step(self.spec, trees, sel, policy, logits, legal, terminal,
-                                    value, turn, s, 1)
+                                    value, turn, s, 1,
+                                    leaf_reward=self.env.reward(leaf_states) if self.env_rewards
+                                    else None)
         self._store_nodes(nodes, s, leaf_states)
         return trees, sel
 

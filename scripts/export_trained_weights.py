@@ -13,6 +13,13 @@ JAX ``bench.py`` times az n=200 with) into
         runs/oth8_gaz_r5/model/weight_iter_60000.ckpt \
         minizero_tpu_torch/assets/oth8_gaz_r5_iter60000.npz othello gaz
 
+and the trained 2048 net of ``runs/p2048_gmz_r5`` (Gumbel MuZero, 1 x 256,
+the board-game MuZero net: no reward head) with
+
+    python scripts/export_trained_weights.py \
+        runs/p2048_gmz_r5/model/weight_iter_30000.ckpt \
+        minizero_tpu_torch/assets/p2048_gmz_r5_iter30000.npz puzzle2048 gmz
+
 The checkpoint is
 a pickle of flax msgpack bytes (``eval/match.py::load_checkpoint_variables``
 reads it); the ``.npz`` holds ``params`` and ``batch_stats`` flattened to

@@ -43,11 +43,14 @@ def test_config_presets_and_to_string_match(algo, env_name):
 
 def test_env_registry_go_only():
     # the ported envs: Go, TicTacToe for the zero loop's CPU tests, and
-    # Othello, NoGo, Kill-All-Go, Clobber, Gomoku
-    # (with Outer-Open Gomoku) and Hex; the rest still raise
-    assert available_envs() == ["clobber", "go", "gomoku", "hex", "killallgo", "nogo",
-                                "othello", "outer_open_gomoku", "tictactoe"]
-    cfg = tcfg.default_config("connect6")
+    # Othello, NoGo, Kill-All-Go, Clobber, Gomoku (with Outer-Open Gomoku),
+    # Hex, Breakthrough, ConHex, Connect6, Dots and Boxes, Havannah, 2048,
+    # Rubik's cube and Tetris Block Puzzle; the rest still raise
+    assert available_envs() == ["breakthrough", "clobber", "conhex", "connect6",
+                                "dotsandboxes", "go", "gomoku", "havannah", "hex", "killallgo",
+                                "nogo", "othello", "outer_open_gomoku", "puzzle2048", "rubiks",
+                                "tetrisblockpuzzle", "tictactoe"]
+    cfg = tcfg.default_config("amazons")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_env(cfg)
     env = make_env(tcfg.default_config("go"))

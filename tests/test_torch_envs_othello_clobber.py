@@ -27,16 +27,13 @@ from minizero_tpu.config import default_config as j_default
 from minizero_tpu.envs import make_env as j_make_env
 from minizero_tpu.envs.clobber import ClobberEnv as JClobber
 from minizero_tpu.envs.othello import OthelloEnv as JOthello
-from minizero_tpu.selfplay.engine import SelfPlayEngine as JEngine
 from minizero_tpu_torch.config import algorithm_preset, default_config
 from minizero_tpu_torch.envs import make_env
 from minizero_tpu_torch.envs.clobber import ClobberEnv
 from minizero_tpu_torch.envs.othello import OthelloEnv
-from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_env_parity import (  # noqa: E402
-    TorchParityNetFor, jax_parity_network_for, playout_parity)
+from torch_env_parity import engine_parity, playout_parity  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
@@ -80,14 +77,6 @@ def test_clobber_features_and_spec():
     assert float(f[0, ..., 16].min()) == 1.0 and float(f[0, ..., 17].max()) == 0.0
 
 
-def _over(algo, sims):
-    over = dict(algorithm_preset(algo))
-    over.update(actor_num_simulation=sims, actor_gumbel_sample_size=4,
-                actor_select_action_by_count=True, actor_use_gumbel_noise=False,
-                actor_use_dirichlet_noise=False, actor_use_random_rotation_features=False)
-    return over
-
-
 @pytest.mark.parametrize("env_name,algo,sims,force_v2", [
     ("othello", "gaz", 6, False), ("othello", "az", 6, False),
     ("clobber", "gaz", 6, False), ("clobber", "az", 10, True)])
@@ -95,36 +84,8 @@ def test_selfplay_matches_jax_engine(env_name, algo, sims, force_v2):
     """Move for move against the JAX engine on the same parity weights:
     Gumbel AlphaZero on tree step B1, plain AlphaZero on B1, and Clobber's
     plain AlphaZero on the large-N loop (B2 and B3)."""
-    over = _over(algo, sims)
-    jcfg = j_default(env_name, **over)
-    jenv = j_make_env(jcfg)
-    spec = jenv.spec
-    dims = (spec.num_input_channels, spec.input_height, spec.input_width, spec.action_size)
-    jnet, jvars = jax_parity_network_for(dims)
-    jeng = JEngine(jenv, jcfg, jnet, use_bf16=False, _force_kernel_v2=force_v2)
-    cfg = default_config(env_name, **over)
-    eng = SelfPlayEngine(make_env(cfg), cfg, TorchParityNetFor(dims), use_bf16=False,
-                         device="cpu", _force_kernel_v2=force_v2)
-    assert eng.use_tree_kernel_v2 == jeng.use_tree_kernel_v2 == force_v2
-    jstates, states = jeng.init_batch(4), eng.init_batch(4)
-    rng = jax.random.PRNGKey(7)
-    for mv in range(4):
-        rng, k = jax.random.split(rng)
-        jout = jeng.move(jvars, jstates, k)
-        out = eng.move(states)
-        np.testing.assert_array_equal(out.action.numpy(), np.asarray(jout.action),
-                                      err_msg=f"move {mv} action")
-        np.testing.assert_allclose(out.policy_target.numpy(), np.asarray(jout.policy_target),
-                                   rtol=0.05, atol=0.02, err_msg=f"move {mv} policy target")
-        np.testing.assert_allclose(out.root_value.numpy(), np.asarray(jout.root_value),
-                                   rtol=1e-2, atol=5e-3, err_msg=f"move {mv} root value")
-        np.testing.assert_array_equal(out.features.numpy(), np.asarray(jout.features),
-                                      err_msg=f"move {mv} features")
-        for name in ("done", "eval_score", "resign_score", "turn"):
-            np.testing.assert_array_equal(getattr(out, name).numpy(),
-                                          np.asarray(getattr(jout, name)), err_msg=f"move {mv} {name}")
-        np.testing.assert_array_equal(out.states.board.numpy(), np.asarray(jout.states.board))
-        jstates, states = jout.states, out.states
+    eng = engine_parity(env_name, algo, sims, moves=4, opening=0, force_v2=force_v2)
+    assert eng.use_tree_kernel_v2 == force_v2
 
 
 def test_trained_othello_weights_match_the_jax_checkpoint():

@@ -55,11 +55,12 @@ def test_tree_step_kernel_matches_plain_on_card(use_gumbel):
                          device="cuda", seed=4)
     calls = []
 
-    def checked(spec, trees, sel, *rest):
+    def checked(spec, trees, sel, *rest, leaf_reward=None):
         ref_sel = sel.clone()
-        want_t, want_s = tree_step_reference(spec, trees.clone(), ref_sel, *rest)
+        want_t, want_s = tree_step_reference(spec, trees.clone(), ref_sel, *rest,
+                                             leaf_reward=leaf_reward)
         before = fused_tree_step.launches
-        got_t, got_s = fused_tree_step(spec, trees, sel, *rest)
+        got_t, got_s = fused_tree_step(spec, trees, sel, *rest, leaf_reward=leaf_reward)
         assert fused_tree_step.launches == before + 1
         for f in dataclasses.fields(got_t):
             got, want = getattr(got_t, f.name), getattr(want_t, f.name)
@@ -718,19 +719,25 @@ def _wide_b1_search(a, sims, regime, b, seed, dev="cuda"):
     """Every step of a search at ``a`` > 384 actions (the tree step's wide
     kernel), each held against the plain version: the board regime with the
     Gumbel root on tied leaves (halving ticks: m = 4 at n = 16, 16 at n =
-    200), or the reward regime with PUCT and value rescale. Returns the
-    trees, the Gumbel sample size and the longest selection path."""
+    200); the reward regime with PUCT and value rescale; or the reward
+    regime with the Gumbel root, as AlphaZero runs it on the stochastic
+    puzzles (one player, discount 1, value rescale, leaf rewards and values
+    up to 100, tied leaves). Returns the trees, the Gumbel sample size and
+    the longest selection path."""
     from minizero_tpu_torch.search import mcts
 
     board = regime == "board"
+    gumbel = regime in ("board", "gumbel_reward")
     m0 = 4 if sims < 64 else 16
-    spec = mcts.SearchSpec(action_size=a, num_simulations=sims, use_gumbel=board,
+    spec = mcts.SearchSpec(action_size=a, num_simulations=sims, use_gumbel=gumbel,
                            use_gumbel_noise=False, use_dirichlet_noise=False,
                            gumbel_sample_size=m0, flip_player2_value=board,
-                           discount=1.0 if board else 0.997, value_rescale=not board,
-                           init_q_average=not board)
-    make = _tied_leaf(b, a, dev) if board else _random_leaf(b, a, dev)
-    trees, _, depth = _reward_regime_steps(spec, b, seed, make, dev=dev, rewards=not board)
+                           discount=0.997 if regime == "reward" else 1.0,
+                           value_rescale=not board, init_q_average=regime == "reward")
+    make = _tied_leaf(b, a, dev) if gumbel else _random_leaf(b, a, dev)
+    trees, _, depth = _reward_regime_steps(spec, b, seed, make, dev=dev, rewards=not board,
+                                           reward_scale=100.0 if regime == "gumbel_reward"
+                                           else 1.0)
     return trees, m0, depth
 
 
@@ -790,21 +797,23 @@ def _wide_b2_search(a, sims, b, seed, dev="cuda"):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("regime", ["board", "reward"])
+@pytest.mark.parametrize("regime", ["board", "reward", "gumbel_reward"])
 @pytest.mark.parametrize("sims", [16, 200])
 @pytest.mark.parametrize("a", [385, 801, 3040])
 def test_tree_step_above_384_actions_matches_plain(a, sims, regime):
     """The tree step at more actions than a lane's registers hold (A = 385,
     801 and 3040; N = 17 and 201; B = 64): the wide kernel against the plain
     version at every step, in the board regime (Gumbel root, halving ticks,
-    tied leaves) and the reward regime (PUCT, rescale)."""
+    tied leaves), the reward regime (PUCT, rescale) and the reward regime
+    with the Gumbel root (Tetris Block Puzzle's 801 actions under AlphaZero:
+    leaf rewards, rescale, halving ticks)."""
     _need_card()
     from minizero_tpu_torch.ops._build import kernel_attributes
 
     assert kernel_attributes("tree_step", a, sims + 1)["dynamic_smem"] <= 232_448
     trees, m0, depth = _wide_b1_search(a, sims, regime, 64, 80 + a % 7 + sims, dev="cuda")
     assert depth >= 2
-    if regime == "board":
+    if regime != "reward":
         assert int(trees.gumbel_sample_size.max()) < m0
 
 
@@ -959,13 +968,14 @@ def test_native_codec_builds_and_loads_on_the_card_machine():
 # small match, each against the plain version or the CPU
 # ---------------------------------------------------------------------------
 
-def _integer_net(spec, seed):
-    """``chip_smoke.integer_net``: integer weights, so the card and the CPU
-    evaluate it alike (up to ~1 ulp in the softmax)."""
+def _integer_net(spec, seed, muzero=False):
+    """``chip_smoke.integer_net`` (``integer_muzero_net`` with ``muzero``):
+    integer weights, so the card and the CPU evaluate it alike (up to ~1 ulp
+    in the softmax)."""
     sys.path.insert(0, ROOT)
     import chip_smoke
 
-    return chip_smoke.integer_net(spec, seed)
+    return (chip_smoke.integer_muzero_net if muzero else chip_smoke.integer_net)(spec, seed)
 
 
 @pytest.mark.gpu
@@ -973,17 +983,28 @@ def _integer_net(spec, seed):
     ("othello", "gaz", {}), ("nogo", "gaz", {}),
     ("killallgo", "gaz", {"env_killallgo_use_seki": True}), ("clobber", "gaz", {}),
     ("clobber", "az", {"actor_num_simulation": 50}), ("gomoku", "gaz", {}),
-    ("outer_open_gomoku", "gaz", {}), ("hex", "gaz", {})])
+    ("outer_open_gomoku", "gaz", {}), ("hex", "gaz", {}),
+    ("puzzle2048", "gmz", {}), ("puzzle2048", "gaz", {}),
+    ("puzzle2048", "az", {"actor_num_simulation": 200}), ("tetrisblockpuzzle", "gmz", {}),
+    ("rubiks", "gaz", {}), ("connect6", "gaz", {}), ("dotsandboxes", "gaz", {}),
+    ("breakthrough", "gaz", {}), ("conhex", "gaz", {}), ("havannah", "gaz", {})])
 def test_new_family_move_on_card_matches_cpu(env_name, algo, over):
     """One move of each family ported after Go and TicTacToe at B=32 on the card and
     on the CPU from the same random openings (integer-exact net, float32,
-    noise and rotation off): actions, stepped states, terminal flags and
-    scores equal; policy targets within 1e-4, root values within 1e-5.
-    Clobber's 400 actions take the wide kernels: B1 (gaz) and, with az
-    n=50, B2 and B3 on the large-N loop."""
+    noise and rotation off; each device builds a fixed start itself, and
+    the random starts of 2048, Tetris and Rubik's are drawn on the CPU and
+    copied to the card): actions, stepped states (the
+    chance streams' draws among them), rewards, terminal flags and scores
+    equal; policy targets within 1e-4, root values within 1e-5 (relative
+    for the puzzles' scores). Clobber's 400 actions take the wide kernels:
+    B1 (gaz) and, with az n=50, B2 and B3 on the large-N loop; Tetris's 801
+    take B1's; 2048 gaz runs B1' (the env's rewards in the tree), and so
+    does 2048 az n=200: B2 has no reward regime, so a reward env stays on
+    B1 at N=201."""
     _need_card()
     from minizero_tpu_torch.config import algorithm_preset, default_config
     from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.envs.base import Env, map_state
     from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
     from minizero_tpu_torch.ops.tree_kernel_v2 import fused_tree_step_v2
     from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
@@ -994,28 +1015,40 @@ def test_new_family_move_on_card_matches_cpu(env_name, algo, over):
                  **over)
     cfg = default_config(env_name, **small)
     env = make_env(cfg)
-    gpu = SelfPlayEngine(env, cfg, _integer_net(env.spec, 3), use_bf16=False, device="cuda")
-    cpu = SelfPlayEngine(env, cfg, _integer_net(env.spec, 3), use_bf16=False, device="cpu")
-    assert gpu.use_tree_kernel_v2 == (algo == "az")
-    gs, cs = gpu.init_batch(32), cpu.init_batch(32)
+    muzero = algo.endswith("mz")
+    gpu = SelfPlayEngine(env, cfg, _integer_net(env.spec, 3, muzero), use_bf16=False,
+                         device="cuda")
+    cpu = SelfPlayEngine(env, cfg, _integer_net(env.spec, 3, muzero), use_bf16=False,
+                         device="cpu")
+    assert gpu.use_tree_kernel_v2 == (algo == "az" and not gpu.env_rewards)
+    if type(env).init_random is Env.init_random:  # a fixed start: each device builds its own
+        gs, cs = gpu.init_batch(32), cpu.init_batch(32)
+    else:  # CPU and CUDA generators draw different streams: one random start for both
+        cs = cpu.init_batch(32)
+        gs = map_state(lambda x: x.cuda(), cs)
     rng = np.random.default_rng(4)
     for _ in range(3):  # distinct random openings, the same on both devices
         legal = env.legal_mask(cs).numpy()
         a = torch.from_numpy((rng.random(legal.shape) * legal).argmax(-1).astype(np.int32))
         gs, cs = env.step(gs, a.cuda()), env.step(cs, a)
-    before = (fused_tree_step.launches, fused_tree_step_v2.launches)
+    counters = ("launches", "launches_rewards")
+    before = [getattr(fused_tree_step, c) for c in counters] + [fused_tree_step_v2.launches]
     go, co = gpu.move(gs), cpu.move(cs)
     torch.cuda.synchronize()
     n = cfg.actor_num_simulation + 1
-    assert (fused_tree_step.launches - before[0], fused_tree_step_v2.launches - before[1]) == (
-        (0, n) if algo == "az" else (n, 0))
+    after = [getattr(fused_tree_step, c) for c in counters] + [fused_tree_step_v2.launches]
+    want = [0, 0, 0]
+    want[2 if gpu.use_tree_kernel_v2 else 1 if gpu.env_rewards and not gpu.is_muzero else 0] = n
+    assert [x - y for x, y in zip(after, before)] == want
     assert torch.equal(go.action.cpu(), co.action)
-    for name in ("done", "eval_score", "turn"):
+    for name in ("done", "eval_score", "turn", "reward"):
         assert torch.equal(getattr(go, name).cpu(), getattr(co, name)), name
     for f in dataclasses.fields(co.states):
         assert torch.equal(getattr(go.states, f.name).cpu(), getattr(co.states, f.name)), f.name
     torch.testing.assert_close(go.policy_target.cpu(), co.policy_target, rtol=0, atol=1e-4)
-    torch.testing.assert_close(go.root_value.cpu(), co.root_value, rtol=0, atol=1e-5)
+    # a puzzle's root value is a score (up to hundreds): relative there
+    rtol = 1e-5 if env.spec.discrete_value_size > 1 else 0
+    torch.testing.assert_close(go.root_value.cpu(), co.root_value, rtol=rtol, atol=1e-5)
 
 
 def _console_cfg(**over):
@@ -1045,9 +1078,10 @@ def test_console_genmove_at_batch_one_matches_plain_on_card():
     assert card.device.type == "cuda"
     steps = []
 
-    def checked(spec, trees, sel, *rest):
-        want_t, want_s = tree_step_reference(spec, trees.clone(), sel.clone(), *rest)
-        got_t, got_s = fused_tree_step(spec, trees, sel, *rest)
+    def checked(spec, trees, sel, *rest, leaf_reward=None):
+        want_t, want_s = tree_step_reference(spec, trees.clone(), sel.clone(), *rest,
+                                             leaf_reward=leaf_reward)
+        got_t, got_s = fused_tree_step(spec, trees, sel, *rest, leaf_reward=leaf_reward)
         _assert_equal_outputs(got_t, want_t, f"sim {rest[-2]}")
         _assert_equal_outputs(got_s, want_s, f"sim {rest[-2]}")
         steps.append(rest[-2])
