@@ -9,8 +9,10 @@ flagship and of Gumbel MuZero, then the flagship run's eval match, GTP
 console and the other CLI modes, then the tree steps past 384 actions and
 the families Othello, NoGo, Kill-All-Go, Clobber, Gomoku and Hex, then 2048
 (with its trained net), Tetris Block Puzzle, Rubik's cube, Connect6, Dots
-and Boxes, Breakthrough, ConHex and Havannah, and holds every CUDA kernel
-of them against its plain PyTorch version on the card:
+and Boxes, Breakthrough, ConHex and Havannah, then Atari's self-play over
+the host env and its zero iteration, and Lines of Action, Surakarta,
+Santorini and Amazons, and holds every CUDA kernel of them against its
+plain PyTorch version on the card:
 
 - the flagship Go 9x9 Gumbel AlphaZero path, n=16, 1024 games (tree step
   B1, ``csrc/tree_step.cu``, board regime);
@@ -96,6 +98,22 @@ Phases:
      kernel; gaz in its reward regime with the Gumbel root); 9e Rubik's,
      Connect6, Dots and Boxes, Breakthrough, ConHex and Havannah gaz n=16:
      each 1 checked move, 1 warm-up and 8 moves of ``move_scan`` as in 8c.
+ 10. Atari over the host env at ``runs/atari_gmz_r5_b128``'s widths
+     (Gumbel MuZero n=18, B1' with the Gumbel root, 128 games in lock-step
+     on FakeALE(length=900), a seeded net, bf16), and group 5: 10a the host
+     engine (``selfplay/host_engine.py``): one move with every B1' launch
+     beside its plain version, the card ring's stack byte-equal to
+     ``AtariVecEnv.features_u8`` on the first 10 moves and after resets,
+     32 timed moves split into search and host; 10b one zero iteration at
+     the run's recipe (128 sequences, 200 SGD steps at batch 128, a replay
+     window of 7 iterations whose frame window is on the card, OBS tags):
+     16 records' OBS against the window's rows, 256 sampled stacks
+     assembled on the card equal to ``rebuild_features_from_frames``, SGD
+     ms/step and one step's idle share, ``resume`` of the buffer and the
+     window from every record; 10c ``run_selfplay_host`` (``-mode sp``) at
+     B=32 over 50-move episodes; 10d Lines of Action,
+     Surakarta, Santorini and Amazons gaz n=16 at B=1024 on B1's wide kernel
+     (A = 1,456 / 1,296 / 1,900 / 3,040), as in 9e.
 
 Prints one progress line per phase, then a JSON line of kernel numbers, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -1910,6 +1928,358 @@ def phase9(zero_counts, counts) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: Atari over the host env (runs/atari_gmz_r5_b128's widths), and
+# group 5 (Lines of Action, Surakarta, Santorini, Amazons)
+# ---------------------------------------------------------------------------
+
+# runs/atari_gmz_r5_b128 (scripts/run_atari_gmz.py:28-55): Gumbel MuZero
+# n=18, 128 games in lock-step on FakeALE(length=900), 128 sequences and
+# 200 SGD steps at batch 128 an iteration, OBS records, a replay window of 7
+# iterations (its frames fit the card: learner/frame_window.py)
+ATARI_HOST_BATCH = 128
+ATARI_FAKE_LENGTH = 900
+ATARI_RING_CHECKS = 10
+ATARI_TIMED_MOVES = 32
+ATARI_FORCED_RESETS = 8
+ATARI_ZERO_STEPS = 200
+ATARI_ZERO_BATCH = 128
+ATARI_REPLAY = 7
+ATARI_SAMPLED = 256
+ATARI_OBS_CHECKED = 16  # records whose OBS tag is held against the window's rows
+ATARI_SP_BATCH = 32
+ATARI_SP_LENGTH = 200  # -mode sp's episodes: 50 moves each, one terminal record
+GROUP5 = (("linesofaction", 80), ("surakarta", 81), ("santorini", 82), ("amazons", 83))
+
+
+def _fake_ale(seed: int):
+    from minizero_tpu_torch.envs.atari import FakeALE
+
+    return FakeALE(seed=seed, length=ATARI_FAKE_LENGTH)
+
+
+def atari_cfg(seed: int, **over):
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+
+    base = dict(algorithm_preset("gmz", is_atari=True))
+    base.update(zero_num_parallel_games=ATARI_HOST_BATCH,
+                zero_num_games_per_iteration=ATARI_HOST_BATCH,
+                learner_training_step=ATARI_ZERO_STEPS, learner_training_display_step=100,
+                learner_batch_size=ATARI_ZERO_BATCH, zero_actor_record_observations=True,
+                zero_replay_buffer=ATARI_REPLAY, zero_end_iteration=1, program_seed=seed,
+                program_auto_seed=False)
+    base.update(over)
+    return default_config("atari", **base)
+
+
+def atari_host_selfplay(zero_counts, counts) -> dict:
+    """10a: the host engine at the r5 widths (bf16). The first move runs
+    every B1' launch beside its plain version; on the first
+    ATARI_RING_CHECKS moves, and on a move after ATARI_FORCED_RESETS
+    episodes are ended and reset, the card ring's stack must equal
+    ``AtariVecEnv.features_u8`` byte for byte and its f32 action planes the
+    ids / 18; then ATARI_TIMED_MOVES moves with every launch counter 0 just
+    before and read just after, split into the search (the engine's move
+    without its env step) and the host (env step and collector)."""
+    from minizero_tpu_torch.envs.atari import AtariVecEnv
+    from minizero_tpu_torch.models.factory import create_network, init_network
+    from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
+    from minizero_tpu_torch.selfplay.host_engine import (
+        AtariTrajectoryCollector, HostSelfPlayEngine)
+
+    cfg = atari_cfg(70)
+    vec = AtariVecEnv(ATARI_HOST_BATCH, seed=70, ale_factory=_fake_ale)
+    net = init_network(create_network(cfg, vec.spec), seed=70)
+    engine = HostSelfPlayEngine(vec, cfg, net, use_bf16=True, device="cuda", seed=71)
+    collector = AtariTrajectoryCollector(cfg, vec.spec, ATARI_HOST_BATCH)
+    spec = engine.search_spec
+    n = spec.num_simulations
+    rows = np.arange(ATARI_HOST_BATCH)
+
+    def checked_move(what):
+        want = vec.features_u8().reshape(ATARI_HOST_BATCH, 96, 96, 8, 4)
+        ids = np.stack([e._action_history for e in vec.envs])  # f32 id / 18
+        legal = vec.legal_masks()
+        out = engine.move()
+        # the ring's RGB planes before the 1/255 scaling, byte for byte
+        got = engine._ring.permute(0, 2, 3, 1, 4).cpu().numpy()
+        if not np.array_equal(got, want[..., 1:]):
+            fail(f"Atari host engine, {what}: the card ring's stack differs from "
+                 f"AtariVecEnv.features_u8 ({int((got != want[..., 1:]).sum())} bytes)")
+        planes = engine.features()[..., 0::4].cpu().numpy()
+        if not (np.array_equal(planes, np.broadcast_to(ids[:, None, None, :], planes.shape))
+                and np.array_equal(np.clip(planes * 255.0, 0, 255).astype(np.uint8),
+                                   want[..., 0])):
+            fail(f"Atari host engine, {what}: the action planes are not the ids / 18")
+        if not legal[rows, out.action].all():
+            fail(f"Atari host engine, {what}: an illegal action")
+        return out
+
+    check = TreeStepCheck(keep_sim=n // 2)
+    engine.search.tree_step = check
+    t = time.perf_counter()
+    out = checked_move("move 1")
+    engine.search.tree_step = fused_tree_step
+    check_s = time.perf_counter() - t
+    if check.calls != n + 1 or check.reward_calls != n + 1:
+        fail(f"Atari host engine: {check.calls} tree steps checked in a move "
+             f"({check.reward_calls} in the reward regime), expected {n + 1} B1'")
+    collector.add_moves(out)
+    for m in range(2, ATARI_RING_CHECKS + 1):  # the warm-up moves
+        collector.add_moves(checked_move(f"move {m}"))
+    env_s = 0.0
+    vec_step = vec.step
+
+    def timed_step(actions):
+        nonlocal env_s
+        ts = time.perf_counter()
+        r = vec_step(actions)
+        env_s += time.perf_counter() - ts
+        return r
+
+    vec.step = timed_step
+    move_s = collect_s = 0.0
+    torch.cuda.synchronize()
+    zero_counts()
+    t = time.perf_counter()
+    for _ in range(ATARI_TIMED_MOVES):
+        tm = time.perf_counter()
+        out = engine.move()
+        move_s += time.perf_counter() - tm
+        tc = time.perf_counter()
+        _, reset = collector.add_moves(out)
+        if reset:
+            vec.reset_done()
+        collect_s += time.perf_counter() - tc
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t
+    launches = counts()
+    vec.step = vec_step
+    want = {"tree_step": 0, "tree_step_rewards": ATARI_TIMED_MOVES * (n + 1), "tree_step_v2": 0,
+            "gather_rows": 0, "gather_rows_aligned": 0}
+    if launches != want:
+        fail(f"Atari host engine: launches {launches}, expected {want}")
+    if not (np.isfinite(out.root_value).all() and np.isfinite(out.policy_target).all()):
+        fail("Atari host engine: root values or policy targets not finite")
+    # end some episodes now (their FakeALE frame counters at the length):
+    # the next move zeroes their slots of the ring
+    for e in vec.envs[:ATARI_FORCED_RESETS]:
+        e.ale.frame = e.ale.length
+    reset = vec.reset_done()
+    if reset != list(range(ATARI_FORCED_RESETS)):
+        fail(f"Atari host engine: reset slots {reset}")
+    checked_move("the move after reset_done")
+    return {"cfg": cfg, "n": n, "A": spec.action_size, "N": spec.max_nodes,
+            "checked": check.calls, "err": check.max_abs_err, "check_s": check_s,
+            "ring_checks": ATARI_RING_CHECKS + 1, "ms_per_move": 1e3 * elapsed / ATARI_TIMED_MOVES,
+            "search_ms": 1e3 * (move_s - env_s) / ATARI_TIMED_MOVES,
+            "env_ms": 1e3 * env_s / ATARI_TIMED_MOVES,
+            "collect_ms": 1e3 * collect_s / ATARI_TIMED_MOVES, "launches": launches,
+            "b1": tree_step_numbers(check.kept)}
+
+
+def _rebuilt_stack(rec, pos: int) -> np.ndarray:
+    """``rebuild_features_from_frames`` at one position of a record (its
+    lead history included): the 9 frames up to it are enough."""
+    from minizero_tpu_torch.envs.atari import rebuild_features_from_frames
+
+    lead = rec.frame_lead
+    acts = np.concatenate([np.asarray(rec.lead_actions if rec.lead_actions is not None else [],
+                                      np.int32), rec.actions])
+    p = lead + pos
+    s = max(0, p - 8)
+    return rebuild_features_from_frames(rec.frames[s:p + 1], acts[s:p + 1])[-1]
+
+
+def atari_zero_iteration(zero_counts, counts) -> dict:
+    """10b: one iteration of ``ZeroLoop.run`` at runs/atari_gmz_r5_b128's
+    recipe: the frame window on the card, records with OBS tags parsed back
+    and equal to the window's rows, ATARI_SAMPLED sampled stacks assembled
+    on the card equal to the host's rebuild, SGD ms/step and one profiled
+    step's idle share, then a fresh loop's ``resume`` (checkpoint, buffer,
+    window)."""
+    from minizero_tpu_torch.selfplay.record import game_record_from_string
+    from minizero_tpu_torch.tools.obs import unpack_observations
+    from minizero_tpu_torch.zero.loop import ZeroLoop, _to_device
+
+    cfg = atari_cfg(72)
+    what = "Atari zero iteration"
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="zero_atari_") as run_dir:
+        loop = ZeroLoop(cfg, run_dir, ale_factory=_fake_ale)
+        fw = loop.frame_window
+        if not (fw.on_device and fw.frames.device.type == "cuda"):
+            fail(f"{what}: the frame window is not on the card")
+        out["window_gb"], out["window_rows"] = fw.nbytes / 1e9, fw.rows
+        n = loop.engine.search_spec.num_simulations
+        timer = StepTimer(loop._train_step, SGD_TIMED_FROM, ATARI_ZERO_STEPS)
+        loop._train_step = timer
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t = time.perf_counter()
+        loop.run()
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t
+        launches = counts()
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        timing = dict(loop.last_selfplay_timing)
+        moves = timing["moves"]
+        want = {"tree_step": 0, "tree_step_rewards": moves * (n + 1), "tree_step_v2": 0,
+                "gather_rows": 0, "gather_rows_aligned": 0}
+        if launches != want:
+            fail(f"{what}: launches {launches}, expected {want} ({moves} moves)")
+        (row,) = [json.loads(x) for x in open(os.path.join(run_dir, "perf.jsonl"))]
+        lines = open(os.path.join(run_dir, "sgf", "1.sgf")).read().splitlines()
+        games = cfg.zero_num_games_per_iteration
+        if len(lines) != games or len(loop.buffer) != games:
+            fail(f"{what}: {len(lines)} records, {len(loop.buffer)} in the buffer, expected {games}")
+        # the first records' OBS against the window's rows here; resume below
+        # parses every record and holds its frames against the buffer's
+        for i, (line, rec) in enumerate(zip(lines[:ATARI_OBS_CHECKED], loop.buffer.games)):
+            tags, parsed = game_record_from_string(line, 18)
+            if not all(k in tags for k in ("SD", "LL", "OBS")):
+                fail(f"{what}: record {i} lacks an SD, LL or OBS tag")
+            frames = unpack_observations(tags["OBS"])
+            e = fw._games.get(id(rec))
+            if e is None:
+                fail(f"{what}: record {i} is not in the frame window")
+            rows = fw.frames[e["base"] + e["lead"]:e["base"] + e["lead"] + rec.length].cpu().numpy()
+            if not (np.array_equal(parsed.actions, rec.actions) and np.array_equal(frames, rows)
+                    and np.array_equal(frames, rec.frames[rec.frame_lead:])):
+                fail(f"{what}: record {i}'s actions or OBS frames differ from the buffer's or "
+                     f"the window's")
+        sample = loop.buffer.sample_muzero(ATARI_SAMPLED, np.random.RandomState(73))
+        idx = sample["sampled_index"]
+        recs = [loop.buffer.games[g] for g in idx[:, 0]]
+        got = fw.assemble(fw.lookup(recs, idx[:, 1])).cpu().numpy()
+        for j, (rec, pos) in enumerate(zip(recs, idx[:, 1])):
+            if not np.array_equal(got[j], _rebuilt_stack(rec, int(pos))):
+                fail(f"{what}: sampled stack {j} differs from rebuild_features_from_frames")
+        out["leads"] = sum(r.frame_lead > 0 for r in recs)
+
+        def one_step():
+            b = loop.buffer.sample_muzero(ATARI_ZERO_BATCH, loop.np_rng)
+            si = b.pop("sampled_index")
+            batch = _to_device(b, loop.device)
+            batch["features"] = fw.assemble(fw.lookup([loop.buffer.games[g] for g in si[:, 0]],
+                                                      si[:, 1]))
+            timer.fn(loop.state, batch, loop.generator)
+
+        out["profile"], _ = profile_run(one_step, timer.ms_per_step(), what="SGD step")
+        path = loop.save_checkpoint()
+        out["ckpt_mib"] = os.path.getsize(path) / 2**20
+        fresh = ZeroLoop(cfg, run_dir, ale_factory=_fake_ale)
+        t = time.perf_counter()
+        start = fresh.resume()
+        torch.cuda.synchronize()
+        out["resume_s"] = time.perf_counter() - t
+        if not (start == 1 and fresh.state.step == loop.state.step
+                and same_tensors(loop.network.state_dict(), fresh.network.state_dict())):
+            fail(f"{what}: resume did not reload the checkpoint")
+        if len(fresh.buffer) != games or not all(
+                r in fresh.frame_window and np.array_equal(r.frames, a.frames[a.frame_lead:])
+                and np.array_equal(r.actions, a.actions)
+                for r, a in zip(fresh.buffer.games, loop.buffer.games)):
+            fail(f"{what}: resume did not rebuild the buffer and the window from the records")
+        lengths = np.asarray([r.length for r in loop.buffer.games])
+        out.update(cfg=cfg, games=games, moves=moves, launches=launches["tree_step_rewards"],
+                   selfplay_s=row["selfplay_s"], optimize_s=row["optimize_s"], timing=timing,
+                   ms_per_step=timer.ms_per_step(), len_min=int(lengths.min()),
+                   len_max=int(lengths.max()),
+                   returns=float(np.mean([r.result for r in loop.buffer.games])),
+                   record_mib=os.path.getsize(os.path.join(run_dir, "sgf", "1.sgf")) / 2**20)
+        loop.close()
+        fresh.close()
+        del loop, fresh
+    torch.cuda.empty_cache()
+    return out
+
+
+def atari_sp_mode(zero_counts, counts) -> dict:
+    """10c: ``run_selfplay_host`` (``-mode sp`` on Atari) at B=32 over
+    FakeALE episodes of ATARI_SP_LENGTH frames: 32 records with SD, LL and
+    OBS tags that parse back."""
+    from minizero_tpu_torch.envs.atari import FakeALE
+    from minizero_tpu_torch.__main__ import run_selfplay_host
+    from minizero_tpu_torch.selfplay.record import game_record_from_string
+    from minizero_tpu_torch.tools.obs import unpack_observations
+
+    cfg = atari_cfg(74, zero_num_parallel_games=ATARI_SP_BATCH)
+    with tempfile.TemporaryDirectory(prefix="sp_atari_") as d:
+        path = os.path.join(d, "atari.sgf")
+        zero_counts()
+        t = time.perf_counter()
+        run_selfplay_host(cfg, ATARI_SP_BATCH, path,
+                          ale_factory=lambda s: FakeALE(seed=s, length=ATARI_SP_LENGTH))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = counts()["tree_step_rewards"]
+        lines = open(path).read().splitlines()
+        if len(lines) != ATARI_SP_BATCH:
+            fail(f"-mode sp (Atari): {len(lines)} records, expected {ATARI_SP_BATCH}")
+        for i, line in enumerate(lines):
+            tags, rec = game_record_from_string(line, 18)
+            if not all(k in tags for k in ("SD", "LL", "OBS")) or len(tags["LL"]) != rec.length:
+                fail(f"-mode sp (Atari): record {i} lacks an SD, LL or OBS tag")
+            if unpack_observations(tags["OBS"]).shape != (rec.length, 96, 96, 3):
+                fail(f"-mode sp (Atari): record {i}'s OBS frames do not match its moves")
+        mib = os.path.getsize(path) / 2**20
+    return {"records": len(lines), "seconds": seconds, "launches": launches, "mib": mib,
+            "length": rec.length}
+
+
+def phase10(zero_counts, counts) -> dict:
+    """Phase 10 (see the module's docstring); returns the paths' numbers."""
+    out = {}
+    t = time.perf_counter()
+    a = atari_host_selfplay(zero_counts, counts)
+    out["atari_host"] = a
+    k, p, bound, by, byts, _, depth = a["b1"]
+    log(f"phase 10a Atari host self-play (gmz n={a['n']}, A={a['A']}, N={a['N']}, the r5 net "
+        f"widths {a['cfg'].nn_num_blocks}x{a['cfg'].nn_num_hidden_channels} bf16, "
+        f"B={ATARI_HOST_BATCH}, FakeALE length {ATARI_FAKE_LENGTH}): first move's {a['checked']} "
+        f"B1' steps equal to the plain version (max |diff| {a['err']:.3g}; {a['check_s']:.2f} s); "
+        f"{a['ring_checks']} moves with the card ring's stack byte-equal to features_u8 (the "
+        f"last after {ATARI_FORCED_RESETS} resets); {ATARI_TIMED_MOVES} moves: "
+        f"{a['ms_per_move']:.1f} ms/move (search {a['search_ms']:.1f}, host env step "
+        f"{a['env_ms']:.1f}, collector {a['collect_ms']:.2f}), launches {a['launches']}; B1' "
+        f"{k:.5f} ms, plain {p:.3f} ms, bound {bound:.6f} ms ({by}, {byts} bytes), deepest walk "
+        f"{depth}; in {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    z = atari_zero_iteration(zero_counts, counts)
+    out["atari_zero"] = z
+    tm = z["timing"]
+    log(f"phase 10b Atari zero iteration (runs/atari_gmz_r5_b128's recipe: {z['games']} "
+        f"sequences at B={ATARI_HOST_BATCH}, {ATARI_ZERO_STEPS} SGD steps at batch "
+        f"{ATARI_ZERO_BATCH}, zero_replay_buffer={ATARI_REPLAY}, OBS on): frame window on the "
+        f"card, {z['window_rows']} rows = {z['window_gb']:.3f} GB; self-play {z['moves']} moves "
+        f"in {z['selfplay_s']:.2f} s ({z['games'] / z['selfplay_s']:.2f} records/s; search and "
+        f"env {tm['search_s']:.2f} s, records {tm['records_s']:.2f} s; record lengths "
+        f"{z['len_min']}-{z['len_max']}, returns mean {z['returns']:.1f}); B1' launches "
+        f"{z['launches']} (= {z['moves']} x {z['launches'] // max(z['moves'], 1)}); "
+        f"{z['games']} records ({z['record_mib']:.1f} MiB), the first {ATARI_OBS_CHECKED} parsed "
+        f"back with OBS equal to the window's rows; {ATARI_SAMPLED} sampled stacks ({z['leads']} in continuation chunks) assembled on "
+        f"the card equal to rebuild_features_from_frames; optimize {z['optimize_s']:.2f} s, "
+        f"{z['ms_per_step']:.3f} ms/step = {1e3 / z['ms_per_step']:.1f} SGD steps/s (CUDA "
+        f"events, steps {SGD_TIMED_FROM}-{ATARI_ZERO_STEPS}); checkpoint {z['ckpt_mib']:.2f} MiB; "
+        f"resume (checkpoint, buffer and window from the OBS tags) {z['resume_s']:.2f} s; "
+        f"iteration wall {z['wall_s']:.2f} s; peak device memory {z['peak_gib']:.2f} GiB; one "
+        f"profiled SGD step: {z['profile']}; phase in {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    s = atari_sp_mode(zero_counts, counts)
+    out["atari_sp"] = s
+    log(f"phase 10c run_selfplay_host (-mode sp, Atari gmz n=18, B={ATARI_SP_BATCH}): "
+        f"{s['records']} records of {s['length']} moves ({s['mib']:.1f} MiB) with SD, LL and OBS "
+        f"parsed back in {s['seconds']:.2f} s; B1' launches {s['launches']}")
+    for env_name, seed in GROUP5:
+        t = time.perf_counter()
+        r = family_path(env_name, "gaz", {}, FAMILY_MOVES, seed, zero_counts, counts)
+        out[f"{env_name}_gaz"] = r
+        log(f"phase 10d {family_line(r)}; in {time.perf_counter() - t:.2f} s")
+    return out
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     if not torch.cuda.is_available():
@@ -2419,8 +2789,31 @@ def main() -> None:
             "launches": r["launches"][r["kernel"]], "max_abs_err": r["err"], "ms": r["b1"][0],
             "plain_ms": r["b1"][1], "bound_ms": r["b1"][2], "bound_by": r["b1"][3],
             "library_ms": None})
+    # ---- 10. Atari over the host env; group 5 --------------------------------
+    t = time.perf_counter()
+    p10 = phase10(zero_counts, counts)
+    log(f"phase 10 done in {time.perf_counter() - t:.2f} s")
+    ah, az_ = p10["atari_host"], p10["atari_zero"]
+    wide_rows.append({
+        "name": (f"tree_step_rewards (atari gmz n=18 host self-play, A=18, N={ah['N']}, "
+                 f"B={ATARI_HOST_BATCH})"),
+        "route": "cuda", "source": "minizero_tpu_torch/csrc/tree_step.cu",
+        "replaces": "minizero_tpu/ops/tree_kernel.py:136 (reward regime)",
+        "launches": ah["launches"]["tree_step_rewards"], "max_abs_err": ah["err"],
+        "ms": ah["b1"][0], "plain_ms": ah["b1"][1], "bound_ms": ah["b1"][2],
+        "bound_by": ah["b1"][3], "library_ms": None})
+    for env_name, _ in GROUP5:
+        r = p10[f"{env_name}_gaz"]
+        wide_rows.append({
+            "name": f"tree_step_wide ({env_name} gaz n=16, A={r['A']}, N={r['N']})",
+            "route": "cuda", "source": "minizero_tpu_torch/csrc/tree_step.cu",
+            "replaces": "minizero_tpu/ops/tree_kernel.py:136",
+            "launches": r["launches"]["tree_step"], "max_abs_err": r["err"], "ms": r["b1"][0],
+            "plain_ms": r["b1"][1], "bound_ms": r["b1"][2], "bound_by": r["b1"][3],
+            "library_ms": None})
     families = {key: {"ms_per_move": r["ms_per_move"], "env_steps_per_s": r["steps_per_s"]}
-                for key, r in {**p8["paths"], **p9}.items() if "ms_per_move" in r}
+                for key, r in {**p8["paths"], **p9, **p10}.items()
+                if isinstance(r, dict) and "steps_per_s" in r}
     pz, pg = p9["puzzle2048_zero"], p9["puzzle2048_games"]
     oz, oe = p8["paths"]["othello_zero"], p8["paths"]["othello_eval"]
 
@@ -2499,7 +2892,12 @@ def main() -> None:
         "puzzle2048_trained_mean_return": pg["trained"]["mean"],
         "puzzle2048_seeded_mean_return": pg["seeded init"]["mean"],
         "puzzle2048_zero_sgd_steps_per_s": 1e3 / pz["ms_per_step"],
-        "puzzle2048_zero_selfplay_s": pz["selfplay_s"]}
+        "puzzle2048_zero_selfplay_s": pz["selfplay_s"],
+        "atari_host_ms_per_move": ah["ms_per_move"], "atari_host_search_ms": ah["search_ms"],
+        "atari_host_env_ms": ah["env_ms"], "atari_zero_selfplay_s": az_["selfplay_s"],
+        "atari_zero_b1_launches": az_["launches"],
+        "atari_zero_sgd_steps_per_s": 1e3 / az_["ms_per_step"],
+        "atari_zero_window_gb": az_["window_gb"]}
     print(json.dumps(result), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -9,6 +9,7 @@ is present they raise instead of falling back to the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -24,3 +25,13 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``. To the card it goes through
+    pinned memory without blocking the host; the pinned buffer lives until
+    the copy is done (torch's host allocator waits for the copy's stream)."""
+    t = torch.from_numpy(np.require(x, requirements="CW"))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -5,7 +5,8 @@
                                  [-platform cpu]
 
 Modes (``mode_handler.cpp:20-27``): ``console`` (GTP on stdin), ``sp``
-(standalone self-play to a record file), ``zero`` (the single-device zero
+(standalone self-play to a record file; for Atari over the host env, with
+SD, LL and OBS record tags), ``zero`` (the single-device zero
 training loop, continuing from the run directory's newest checkpoint),
 ``env_test`` (random playout and replay self-check), ``zero_training_name``
 (the canonical run name), ``eval`` (a training run's checkpoint ladder, or
@@ -13,8 +14,8 @@ two runs against each other with ``-run_dir_b``). ``-gen`` writes an
 annotated config file and exits. Everything runs on the card unless
 ``-platform cpu`` asks for the CPU.
 
-Not ported (ROADMAP.md): ``-multi_device`` (A11), Atari ``sp`` (A10),
-``remove_obs`` and ``recover_obs`` (A12).
+Not ported (ROADMAP.md): ``-multi_device`` (A11), ``remove_obs`` and
+``recover_obs`` (A12).
 """
 
 from __future__ import annotations
@@ -101,8 +102,8 @@ def run_selfplay(cfg, num_games: int, output: str, device=None) -> None:
     from minizero_tpu_torch.selfplay.record import serialize_game
 
     if cfg.env_name == "atari":
-        raise NotImplementedError(
-            "Atari self-play (the host env engine) is not ported yet (ROADMAP.md, A10)")
+        run_selfplay_host(cfg, num_games, output, device=device)
+        return
     dev = resolve_device(device)
     env = make_env(cfg)
     net = init_network(create_network(cfg, env.spec), seed=cfg.program_seed)
@@ -125,6 +126,45 @@ def run_selfplay(cfg, num_games: int, output: str, device=None) -> None:
                 out.write(serialize_game(env.spec.name, fg.record, env.spec.board_size,
                                          fg.players) + "\n")
                 done += 1
+    finally:
+        if output:
+            out.close()
+    print(f"wrote {done} games", file=sys.stderr)
+
+
+def run_selfplay_host(cfg, num_games: int, output: str, ale_factory=None, device=None) -> None:
+    """Standalone self-play over the host (ALE) env: ``num_games`` records
+    (chunks of long episodes count one each) with SD, OFF, LL and, with
+    ``zero_actor_record_observations``, OBS tags, one a line, to ``output``
+    (stdout when empty), with a seeded random net. ``ale_factory(seed)``
+    builds the ALE handles (default: ``ale_py``'s)."""
+    from minizero_tpu_torch import resolve_device
+    from minizero_tpu_torch.envs.atari import AtariVecEnv
+    from minizero_tpu_torch.models.factory import create_network, init_network
+    from minizero_tpu_torch.selfplay.host_engine import (
+        AtariTrajectoryCollector, HostSelfPlayEngine, atari_record_line)
+
+    dev = resolve_device(device)
+    batch = cfg.zero_num_parallel_games
+    vec = AtariVecEnv(batch, seed=cfg.program_seed, game_name=cfg.env_atari_name,
+                      rom_dir=cfg.env_atari_rom_dir, ale_factory=ale_factory)
+    net = init_network(create_network(cfg, vec.spec), seed=cfg.program_seed)
+    engine = HostSelfPlayEngine(vec, cfg, net, device=dev, seed=cfg.program_seed,
+                                use_bf16=dev.type == "cuda")
+    collector = AtariTrajectoryCollector(cfg, vec.spec, batch)
+    done = 0
+    out = open(output, "w") if output else sys.stdout
+    try:
+        while done < num_games:
+            finished, reset_slots = collector.add_moves(engine.move())
+            for fg in finished:
+                if done >= num_games:
+                    break
+                out.write(atari_record_line(vec.spec, fg, vec.envs[fg.slot].seed,
+                                            cfg.zero_actor_record_observations) + "\n")
+                done += 1
+            if reset_slots:
+                vec.reset_done()
     finally:
         if output:
             out.close()
@@ -183,7 +223,7 @@ def main(argv=None, device=None) -> int:
         raise NotImplementedError("-multi_device is not ported yet (ROADMAP.md, A11)")
     if args.mode in ("remove_obs", "recover_obs"):
         raise NotImplementedError(
-            f"-mode {args.mode} (tools/obs.py) is not ported yet (ROADMAP.md, A12)")
+            f"-mode {args.mode} (the OBS tools) is not ported yet (ROADMAP.md, A12)")
 
     if args.mode == "zero_training_name":
         print(training_name(cfg))

@@ -1,12 +1,12 @@
 """Environment registry (port of ``minizero_tpu/envs/__init__.py``).
 
 ``env_defaults`` keeps the per-env config defaults of every game family, so
-``config.default_config`` gives the same configs as the JAX package. Of the
-envs themselves Go, TicTacToe, Othello, NoGo, Kill-All-Go, Clobber, Gomoku
-(with Outer-Open Gomoku), Hex, Connect6, Breakthrough, Havannah, ConHex,
-Dots and Boxes, Rubik's cube, 2048 and Tetris Block Puzzle are ported;
-``make_env`` raises ``NotImplementedError`` for the others (ROADMAP.md,
-queue A, lists them).
+``config.default_config`` gives the same configs as the JAX package, and
+``make_env`` builds every family of the JAX registry. Atari's env lives on
+the host (``envs/atari.py``): ``make_env`` builds one ``AtariEnv`` with the
+real ALE, which needs the optional ``ale_py`` package (without it,
+``ImportError``); the zero loop and ``-mode sp`` build a batch of them and
+take an ``ale_factory``.
 """
 
 from __future__ import annotations
@@ -16,8 +16,7 @@ from typing import Any, Callable, Dict, Tuple
 
 from minizero_tpu_torch.envs.base import Env
 
-# name -> (module, class, ctor kwargs from cfg, per-env config defaults);
-# module None = not ported yet
+# name -> (module, class, ctor kwargs from cfg, per-env config defaults)
 _TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]] = {
     "tictactoe": (
         "minizero_tpu_torch.envs.tictactoe",
@@ -110,19 +109,19 @@ _TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]
         {"env_board_size": 9, "actor_dirichlet_noise_alpha": 0.03},
     ),
     "amazons": (
-        None,
+        "minizero_tpu_torch.envs.amazons",
         "AmazonsEnv",
         lambda cfg: {"board_size": cfg.env_board_size or 10},
         {"env_board_size": 10, "actor_dirichlet_noise_alpha": 0.03},
     ),
     "santorini": (
-        None,
+        "minizero_tpu_torch.envs.santorini",
         "SantoriniEnv",
         lambda cfg: {},
         {"env_board_size": 5, "actor_dirichlet_noise_alpha": 0.03},
     ),
     "surakarta": (
-        None,
+        "minizero_tpu_torch.envs.surakarta",
         "SurakartaEnv",
         lambda cfg: {
             "board_size": cfg.env_board_size or 6,
@@ -131,7 +130,7 @@ _TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]
         {"env_board_size": 6, "actor_dirichlet_noise_alpha": 0.03},
     ),
     "linesofaction": (
-        None,
+        "minizero_tpu_torch.envs.linesofaction",
         "LinesOfActionEnv",
         lambda cfg: {"board_size": cfg.env_board_size or 8},
         {"env_board_size": 8, "actor_dirichlet_noise_alpha": 0.03},
@@ -177,7 +176,7 @@ _TABLE: Dict[str, Tuple[str, str, Callable[..., Dict[str, Any]], Dict[str, Any]]
         {"env_board_size": 3, "actor_dirichlet_noise_alpha": 0.03},
     ),
     "atari": (
-        None,
+        "minizero_tpu_torch.envs.atari",
         "AtariEnv",
         lambda cfg: {"game_name": cfg.env_atari_name, "rom_dir": cfg.env_atari_rom_dir},
         # reference atari.h:86-92 setUpEnv overrides
@@ -218,14 +217,10 @@ def make_env(cfg) -> Env:
     if name not in _TABLE:
         raise KeyError(f"unknown env {name!r}; known: {sorted(_TABLE)}")
     module_name, class_name, kwargs_fn, _ = _TABLE[name]
-    if module_name is None:
-        raise NotImplementedError(
-            f"env {name!r} is not ported to minizero_tpu_torch yet "
-            "(see ROADMAP.md, queue A)")
     module = importlib.import_module(module_name)
     return getattr(module, class_name)(**kwargs_fn(cfg))
 
 
 def available_envs():
-    """Envs that are ported."""
-    return sorted(name for name, row in _TABLE.items() if row[0] is not None)
+    """Every env family's name."""
+    return sorted(_TABLE)

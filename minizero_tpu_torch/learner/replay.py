@@ -18,9 +18,10 @@ priority^alpha weighting and ``(N * p)^-beta`` importance scaling
 trainable DLEN range, and the reference's absorbing-state targets (uniform
 policy, zero reward, random absorbing action features).
 
-Frames-schema records (Atari: per-position frames instead of stacked
-planes) keep their fields, so the record type is the JAX package's, but
-sampling them raises until the frame window is ported (ROADMAP.md, A10).
+Frames-schema records (Atari) carry per-position frames instead of stacked
+planes: sampling returns the (game, position) pairs and the targets, and the
+zero loop assembles the stacks on the device from its frame window
+(``learner/frame_window.py``).
 """
 
 from __future__ import annotations
@@ -242,16 +243,22 @@ class ReplayBuffer:
         self._dr_sizes = np.array(
             [g.data_range[1] - g.data_range[0] + 1 for g in games], np.int64)
         self._dr_cum = np.cumsum(self._dr_sizes)
-        feat_shapes = {g.features.shape[1:] for g in games}
-        total_bytes = sum(g.features.nbytes for g in games)
-        if (not games or len(feat_shapes) != 1
-                or total_bytes > self.FLAT_FEATURE_CACHE_MAX_BYTES):
-            return False
+        # frames-schema records (Atari) carry no stacked features: the flat
+        # metadata caches below still vectorize sampling; the stack itself is
+        # assembled from frames at sample time (learner/frame_window.py)
+        frames_mode = bool(games) and games[0].features is None
+        if not frames_mode:
+            feat_shapes = {g.features.shape[1:] for g in games}
+            total_bytes = sum(g.features.nbytes for g in games)
+            if (not games or len(feat_shapes) != 1
+                    or total_bytes > self.FLAT_FEATURE_CACHE_MAX_BYTES):
+                return False
         # build into locals and publish _flat_feats LAST: a mid-build
         # exception (e.g. MemoryError) must leave the cache invalid (feats
         # None -> callers fall back to the per-game path) rather than half
         # built behind a version that claims validity
-        flat_feats = np.concatenate([g.features for g in games])
+        flat_feats = (None if frames_mode
+                      else np.concatenate([g.features for g in games]))
         self._flat_policy = np.concatenate(
             [np.asarray(g.policy, np.float16) for g in games])
         self._flat_actions = np.concatenate(
@@ -261,7 +268,8 @@ class ReplayBuffer:
         self._flat_feats = flat_feats
         for i, g in enumerate(games):
             o = int(self._flat_offsets[i])
-            g.features = self._flat_feats[o:o + g.length]
+            if not frames_mode:
+                g.features = self._flat_feats[o:o + g.length]
             g.policy = self._flat_policy[o:o + g.length]
         self._flat_ok = True
         return True
@@ -271,10 +279,6 @@ class ReplayBuffer:
         """Two-level (game, position) sampling (reference
         ``data_loader.cpp:53-64``) + PER loss scales
         (``data_loader.cpp:66-74``)."""
-        if self.frames_mode:
-            raise NotImplementedError(
-                "frames-schema records (Atari) need the frame window, which is not "
-                "ported yet (ROADMAP.md, A10)")
         if not self.cfg.learner_use_per:
             # fast uniform path: every in-range position equally likely, so
             # sample flat position indices and invert via cumulative lengths
@@ -305,6 +309,9 @@ class ReplayBuffer:
     def sample_alphazero(self, batch_size: int, rng: np.random.RandomState) -> Dict[str, np.ndarray]:
         """(features u8, policy, value, loss_scale) — rotation augmentation is
         applied later on device."""
+        if self.frames_mode:
+            raise NotImplementedError(
+                "frames-schema records (Atari) train through sample_muzero")
         game_ids, pos_ids, loss_scale = self.sample_indices(batch_size, rng)
         spec = self.spec
         if self._ensure_flat_data():
@@ -350,7 +357,10 @@ class ReplayBuffer:
             pos = pos_ids[:, None] + np.arange(k + 1)[None, :]  # [B, k+1]
             inside = pos < length[:, None]
             flat = offs[:, None] + np.minimum(pos, np.maximum(length - 1, 0)[:, None])
-            feats = self._flat_feats[offs + pos_ids]
+            # frames schema: no stacked features to gather; the caller
+            # assembles them on the device from the sampled (game, pos) pairs
+            feats = (None if self.frames_mode
+                     else self._flat_feats[offs + pos_ids])
             # absorbing policy is uniform (reference base_env.h:262-264);
             # absorbing action features use a random action
             # (reference tictactoe.cpp:147-152)
@@ -371,15 +381,20 @@ class ReplayBuffer:
             else:
                 value = np.where(inside, self._flat_vt[flat], 0.0).astype(np.float32)
         else:
-            feat_c = self.games[game_ids[0]].features.shape[-1]
-            feats = np.empty((batch_size, spec.input_height, spec.input_width, feat_c), np.uint8)
+            frames_mode = self.frames_mode
+            feats = None
+            if not frames_mode:
+                feat_c = self.games[game_ids[0]].features.shape[-1]
+                feats = np.empty((batch_size, spec.input_height, spec.input_width, feat_c),
+                                 np.uint8)
             actions = np.empty((batch_size, k), np.int32)
             policy = np.empty((batch_size, k + 1, a), np.float16)
             value = np.empty((batch_size, k + 1), np.float32)
             reward = np.zeros((batch_size, k), np.float32)
             for i, (g, p) in enumerate(zip(game_ids, pos_ids)):
                 rec = self.games[g]
-                feats[i] = rec.features[p]
+                if not frames_mode:
+                    feats[i] = rec.features[p]
                 for step in range(k + 1):
                     pos = p + step
                     inside = pos < rec.length
@@ -388,15 +403,17 @@ class ReplayBuffer:
                         reward[i, step] = rec.rewards[pos] if inside else 0.0
                     policy[i, step] = rec.policy[pos] if inside else uniform
                     value[i, step] = self.value_target(rec, pos)
-        return {
+        out = {
             "actions": actions,
             "policy": policy,
             "value": value,
             "reward": reward,
             "loss_scale": loss_scale,
             "sampled_index": np.stack([game_ids, pos_ids], axis=1),
-            "features": feats,
         }
+        if feats is not None:
+            out["features"] = feats
+        return out
 
     # -------------------------------------------------------------- PER sync
     def update_priority(self, sampled_index: np.ndarray, new_priorities: np.ndarray) -> None:

@@ -31,6 +31,7 @@ class FinishedGame:
     record: GameRecord
     players: Tuple[int, ...]
     slot: int
+    abs_start: int = 0  # episode position of the record's first move (Atari chunks)
 
 
 def _host(x) -> np.ndarray:

@@ -19,9 +19,15 @@ keeps its bf16 inference copy in step with it at every move, and the train
 step leaves it in eval mode, so self-play after an optimize plays the new
 weights with running statistics.
 
+Atari runs its env on the host (``envs/atari.py``, the ALE injectable as
+``ale_factory``): ``selfplay/host_engine.py`` searches on the device and
+chunks long episodes into records that store one frame a position, the
+frame window (``learner/frame_window.py``) keeps the replay window's frames
+on the device, and each SGD step's stacks are assembled there.
+
 Not ported (ROADMAP.md): the mesh and multi-host paths and their watchdog
-(A11), the Atari host-env loop and its frame window (A10), and the analysis
-plots the JAX loop redraws every 5 iterations (A12).
+(A11), and the analysis plots the JAX loop redraws every 5 iterations
+(A12).
 """
 
 from __future__ import annotations
@@ -37,15 +43,20 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from minizero_tpu_torch import resolve_device
+from minizero_tpu_torch import resolve_device, upload
 from minizero_tpu_torch.config import Config
 from minizero_tpu_torch.envs import make_env
+from minizero_tpu_torch.envs.atari import AtariVecEnv
+from minizero_tpu_torch.learner.frame_window import FrameWindow, rows_needed
 from minizero_tpu_torch.learner.replay import GameRecord, ReplayBuffer
 from minizero_tpu_torch.learner.train import init_train_state, make_train_step
 from minizero_tpu_torch.models.factory import create_network, init_network
 from minizero_tpu_torch.selfplay.collector import TrajectoryCollector
 from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
+from minizero_tpu_torch.selfplay.host_engine import (
+    AtariTrajectoryCollector, HostSelfPlayEngine, atari_record_line)
 from minizero_tpu_torch.selfplay.record import game_record_from_string, serialize_game
+from minizero_tpu_torch.tools.obs import unpack_observations
 from minizero_tpu_torch.utils.bitpack import pack_planes, packed_channels
 
 
@@ -73,13 +84,10 @@ def temperature_for_iteration(cfg: Config, iteration: int) -> float:
 
 
 def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    """A sampled batch onto the device. On the card the copies go through
-    pinned memory without blocking the host, so the next batch is sampled
-    while the card runs this step."""
-    if device.type != "cuda":
-        return {k: torch.from_numpy(v) for k, v in batch.items()}
-    return {k: torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
-            for k, v in batch.items()}
+    """A sampled batch onto the device. On the card the copies do not block
+    the host (``upload``), so the next batch is sampled while the card runs
+    this step."""
+    return {k: upload(v, device) for k, v in batch.items()}
 
 
 class ZeroLoop:
@@ -88,27 +96,57 @@ class ZeroLoop:
     ``device`` is the CUDA card by default (``resolve_device``: without a
     card it raises) and the CPU only when asked for. Self-play evaluates
     the net in bf16 on the card (the JAX engine's default) and in float32
-    on the CPU."""
+    on the CPU. For Atari, ``ale_factory(seed)`` builds the episodes' ALE
+    handles (default: the real ALE of ``ale_py``)."""
 
-    def __init__(self, cfg: Config, run_dir: str, device=None):
-        if cfg.env_name == "atari":
-            raise NotImplementedError(
-                "the Atari zero loop (host env, frame window) is not ported yet "
-                "(ROADMAP.md, A10)")
+    def __init__(self, cfg: Config, run_dir: str, device=None, ale_factory=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.run_dir = run_dir
         os.makedirs(os.path.join(run_dir, "model"), exist_ok=True)
         os.makedirs(os.path.join(run_dir, "sgf"), exist_ok=True)
-        self.env = make_env(cfg)
+        self.is_host_env = cfg.env_name == "atari"
+        self.vec_env = self.frame_window = None
+        if self.is_host_env:
+            # the ALE on the host, the search on the device: the reference's
+            # Atari actor consults the env at the root only
+            # (actor/zero_actor.cpp:58-68)
+            self.vec_env = AtariVecEnv(
+                cfg.zero_num_parallel_games, seed=cfg.program_seed,
+                game_name=cfg.env_atari_name, rom_dir=cfg.env_atari_rom_dir,
+                ale_factory=ale_factory)
+            self.env = self.vec_env.envs[0]
+            spec = self.env.spec
+            rows = rows_needed(cfg, spec.max_game_length)
+            window_bytes = rows * spec.input_height * spec.input_width * 3
+            on_device = window_bytes <= cfg.learner_device_feature_window_gb * (1 << 30)
+            self.frame_window = FrameWindow(rows, spec.input_height, spec.input_width,
+                                            device=self.device, on_device=on_device)
+            if not on_device:
+                print(f"[FrameWindow] {window_bytes / 1e9:.1f} GB exceeds "
+                      f"learner_device_feature_window_gb="
+                      f"{cfg.learner_device_feature_window_gb}; the frames stay in host "
+                      "memory and each batch's stacks are assembled there", flush=True)
+        else:
+            self.env = make_env(cfg)
         seed = cfg.program_seed if not cfg.program_auto_seed else int(time.time())
         # the network lives on the device before the optimizer takes its
         # parameters; the engine gets this same module
         self.network = init_network(create_network(cfg, self.env.spec), seed=seed).to(self.device)
         self.state = init_train_state(cfg, self.network)
-        self.engine = SelfPlayEngine(
-            self.env, cfg, self.network, device=self.device, seed=seed,
-            use_bf16=self.device.type == "cuda")
+        if self.is_host_env:
+            self.engine = HostSelfPlayEngine(
+                self.vec_env, cfg, self.network, device=self.device, seed=seed,
+                use_bf16=self.device.type == "cuda")
+            # the collector persists across iterations: episodes keep running
+            # while the loop alternates self-play and optimize, as the
+            # reference's actors keep their episode state between iterations
+            self._atari_collector = AtariTrajectoryCollector(
+                cfg, self.env.spec, cfg.zero_num_parallel_games)
+        else:
+            self.engine = SelfPlayEngine(
+                self.env, cfg, self.network, device=self.device, seed=seed,
+                use_bf16=self.device.type == "cuda")
         self.buffer = ReplayBuffer(cfg, self.env.spec)
         self._train_step = make_train_step(cfg, self.env, self.network)
         # the train step's rotation draws; the replay's draws stay on numpy
@@ -136,6 +174,8 @@ class ZeroLoop:
 
     # -------------------------------------------------------------- selfplay
     def self_play_iteration(self, iteration: int) -> Dict[str, float]:
+        if self.is_host_env:
+            return self._host_self_play_iteration(iteration)
         cfg = self.cfg
         spec = self.env.spec
         temperature = temperature_for_iteration(cfg, iteration)
@@ -197,6 +237,53 @@ class ZeroLoop:
                                      "records_s": t_host}
         return self._selfplay_stats(iteration, num_games, lengths, returns, time.time() - t0)
 
+    def _host_self_play_iteration(self, iteration: int) -> Dict[str, float]:
+        """Self-play over the host vec env (Atari): the search on the
+        device, the ALE on the host, intermediate-sequence chunks, and per
+        record the SD seed tag, OFF, LL and (``zero_actor_record_observations``)
+        OBS tags (the reference's Atari record schema, atari.cpp:106-110,
+        base_env.h:215-219). Each record goes to the replay buffer and the
+        frame window as it is emitted."""
+        cfg = self.cfg
+        spec = self.env.spec
+        temperature = temperature_for_iteration(cfg, iteration)
+        collector = self._atari_collector
+        num_games, lengths, returns = 0, [], []
+        record_path = os.path.join(self.run_dir, "sgf", f"{iteration}.sgf")
+        model_file = f"weight_iter_{self.state.step}"
+        t_search = t_records = 0.0
+        moves = 0
+        t0 = time.time()
+        with open(record_path, "a") as record_file:
+            while num_games < cfg.zero_num_games_per_iteration:
+                tp = time.time()
+                out = self.engine.move(temperature)
+                t_search += time.time() - tp
+                moves += 1
+                tp = time.time()
+                finished, reset_slots = collector.add_moves(out)
+                for fg in finished:
+                    self.buffer.add_game(fg.record)
+                    self.frame_window.add(fg.record)
+                    # slots reset only after emission, so this is the seed
+                    # that made the record (obs recovery replays from it)
+                    record_file.write(atari_record_line(
+                        spec, fg, self.vec_env.envs[fg.slot].seed,
+                        cfg.zero_actor_record_observations, model_file) + "\n")
+                    lengths.append(fg.record.length)
+                    returns.append(fg.record.result)
+                    num_games += 1
+                if reset_slots:
+                    self.vec_env.reset_done()
+                t_records += time.time() - tp
+        # drop the window's bookkeeping of records the buffer evicted
+        self.frame_window.retain(self.buffer.games)
+        self.log(f"[SelfPlay Timing] moves: {moves}, search and env steps: {t_search:.1f}s, "
+                 f"records: {t_records:.1f}s")
+        self.last_selfplay_timing = {"moves": moves, "search_s": t_search,
+                                     "records_s": t_records}
+        return self._selfplay_stats(iteration, num_games, lengths, returns, time.time() - t0)
+
     def _selfplay_stats(self, iteration, num_games, lengths, returns, dt) -> Dict[str, float]:
         stats = {
             "games": num_games,
@@ -252,7 +339,13 @@ class ZeroLoop:
             else:
                 b = self.buffer.sample_alphazero(bs, self.np_rng)
             sampled_index = b.pop("sampled_index")
-            metrics = self._train_step(self.state, _to_device(b, self.device), self.generator)
+            batch = _to_device(b, self.device)
+            if self.frame_window is not None:
+                # frames schema: the stacks are assembled from the window
+                recs = [self.buffer.games[g] for g in sampled_index[:, 0]]
+                batch["features"] = self.frame_window.assemble(
+                    self.frame_window.lookup(recs, sampled_index[:, 1]))
+            metrics = self._train_step(self.state, batch, self.generator)
             new_values = metrics.pop("_new_values", None)
             if new_values is not None:  # PER
                 self.buffer.refresh_priorities(sampled_index, new_values.cpu().numpy())
@@ -367,14 +460,36 @@ class ZeroLoop:
             with opener:
                 for line in opener:
                     line = line.strip()
-                    if line:
-                        records.append(game_record_from_string(line, self.env.spec.action_size)[1])
-        # replayed 256 games at a time (the JAX loop's flush size)
-        for i in range(0, len(records), 256):
-            part = records[i:i + 256]
-            for rec, f in zip(part, self._rebuild_features_batch([r.actions for r in part])):
-                rec.features = f
-                self.buffer.add_game(rec)
+                    if not line:
+                        continue
+                    tags, rec = game_record_from_string(line, self.env.spec.action_size)
+                    if self.is_host_env:
+                        # Atari: frames from the OBS tag, the episodic-life
+                        # cuts from LL (a host env cannot be replayed on the
+                        # device). OBS holds the record's own positions only,
+                        # so a resumed continuation chunk zero-pads its
+                        # pre-chunk history (frame_lead 0), the JAX loop's
+                        # documented approximation
+                        if "OBS" not in tags:
+                            continue  # stripped records are not trainable
+                        rec.features = None
+                        rec.frames = unpack_observations(tags["OBS"])
+                        rec.frame_lead = 0
+                        rec.lead_actions = None
+                        if "LL" in tags:
+                            rec.lives_lost = np.asarray([c == "1" for c in tags["LL"]], bool)
+                        self.buffer.add_game(rec)
+                        self.frame_window.add(rec)
+                    records.append(rec)
+        if self.is_host_env:
+            self.frame_window.retain(self.buffer.games)
+        else:
+            # replayed 256 games at a time (the JAX loop's flush size)
+            for i in range(0, len(records), 256):
+                part = records[i:i + 256]
+                for rec, f in zip(part, self._rebuild_features_batch([r.actions for r in part])):
+                    rec.features = f
+                    self.buffer.add_game(rec)
         self.cfg = self.cfg.replace(zero_start_iteration=start_iter)
         self.log(f"[Resume] iteration {start_iter}, {len(records)} games reloaded")
         return start_iter

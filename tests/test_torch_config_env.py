@@ -42,17 +42,22 @@ def test_config_presets_and_to_string_match(algo, env_name):
 
 
 def test_env_registry_go_only():
-    # the ported envs: Go, TicTacToe for the zero loop's CPU tests, and
-    # Othello, NoGo, Kill-All-Go, Clobber, Gomoku (with Outer-Open Gomoku),
-    # Hex, Breakthrough, ConHex, Connect6, Dots and Boxes, Havannah, 2048,
-    # Rubik's cube and Tetris Block Puzzle; the rest still raise
-    assert available_envs() == ["breakthrough", "clobber", "conhex", "connect6",
-                                "dotsandboxes", "go", "gomoku", "havannah", "hex", "killallgo",
-                                "nogo", "othello", "outer_open_gomoku", "puzzle2048", "rubiks",
-                                "tetrisblockpuzzle", "tictactoe"]
-    cfg = tcfg.default_config("amazons")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_env(cfg)
+    # every family of the JAX registry builds; Atari's real ALE needs the
+    # optional ale_py package, and without it raises ImportError as in JAX
+    from minizero_tpu.envs import _TABLE as j_table
+    from minizero_tpu.envs import make_env as j_make_env
+
+    assert available_envs() == sorted(j_table) and len(available_envs()) == 22
+    for name in available_envs():
+        cfg = tcfg.default_config(name)
+        if name == "atari":
+            try:
+                import ale_py  # noqa: F401
+            except ImportError:
+                with pytest.raises(ImportError, match="ale_py"):
+                    make_env(cfg)
+            continue
+        assert make_env(cfg).spec.action_size == j_make_env(jcfg.default_config(name)).spec.action_size
     env = make_env(tcfg.default_config("go"))
     assert env.spec.action_size == 82 and env.spec.num_input_channels == 18
 

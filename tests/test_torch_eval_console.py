@@ -317,8 +317,11 @@ def test_cli_modes_devices_and_unported_modes(tmp_path, capsys):
     assert len(lines) == 5 and all(parse_game(x, 9)[1] for x in lines)
     with pytest.raises(NotImplementedError, match="ROADMAP.md, A11"):
         main(["-mode", "zero", "-multi_device", "-conf_str", conf, "-platform", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A10"):
-        main(["-mode", "sp", "-conf_str", "env_name=atari", "-platform", "cpu"])
+    try:  # Atari sp runs over the host env; without ale_py its real ALE raises
+        import ale_py  # noqa: F401
+    except ImportError:
+        with pytest.raises(ImportError, match="ale_py"):
+            main(["-mode", "sp", "-conf_str", "env_name=atari", "-platform", "cpu"])
     for mode in ("remove_obs", "recover_obs"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md, A12"):
             main(["-mode", mode, "-platform", "cpu"])

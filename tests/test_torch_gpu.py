@@ -987,7 +987,9 @@ def _integer_net(spec, seed, muzero=False):
     ("puzzle2048", "gmz", {}), ("puzzle2048", "gaz", {}),
     ("puzzle2048", "az", {"actor_num_simulation": 200}), ("tetrisblockpuzzle", "gmz", {}),
     ("rubiks", "gaz", {}), ("connect6", "gaz", {}), ("dotsandboxes", "gaz", {}),
-    ("breakthrough", "gaz", {}), ("conhex", "gaz", {}), ("havannah", "gaz", {})])
+    ("breakthrough", "gaz", {}), ("conhex", "gaz", {}), ("havannah", "gaz", {}),
+    ("linesofaction", "gaz", {}), ("surakarta", "gaz", {}), ("santorini", "gaz", {}),
+    ("amazons", "gaz", {})])
 def test_new_family_move_on_card_matches_cpu(env_name, algo, over):
     """One move of each family ported after Go and TicTacToe at B=32 on the card and
     on the CPU from the same random openings (integer-exact net, float32,
@@ -1000,7 +1002,9 @@ def test_new_family_move_on_card_matches_cpu(env_name, algo, over):
     B1 (gaz) and, with az n=50, B2 and B3 on the large-N loop; Tetris's 801
     take B1's; 2048 gaz runs B1' (the env's rewards in the tree), and so
     does 2048 az n=200: B2 has no reward regime, so a reward env stays on
-    B1 at N=201."""
+    B1 at N=201. Lines of Action, Surakarta, Santorini and Amazons (A =
+    1,456 / 1,296 / 1,900 / 3,040) take B1's wide kernel; their cycle rule
+    sorts and searches the history on each device."""
     _need_card()
     from minizero_tpu_torch.config import algorithm_preset, default_config
     from minizero_tpu_torch.envs import make_env
@@ -1049,6 +1053,79 @@ def test_new_family_move_on_card_matches_cpu(env_name, algo, over):
     # a puzzle's root value is a score (up to hundreds): relative there
     rtol = 1e-5 if env.spec.discrete_value_size > 1 else 0
     torch.testing.assert_close(go.root_value.cpu(), co.root_value, rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_host_engine_ring_and_moves_on_card_match_cpu():
+    """The Atari host engine on the card and on the CPU over two vec envs of
+    the same seeds (FakeALE, integer-exact MuZero net, f32, noise off,
+    select by count), across episode resets: the device ring and action
+    ids, the assembled stacks, actions and rewards equal, policy targets
+    within 1e-4, root values within 1e-5 relative; every tree step a
+    reward-regime launch (B1') on the card."""
+    _need_card()
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.envs import atari
+    from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
+    from minizero_tpu_torch.selfplay.host_engine import HostSelfPlayEngine
+
+    over = dict(algorithm_preset("mz", is_atari=True))
+    over.update(actor_num_simulation=8, actor_use_dirichlet_noise=False,
+                actor_select_action_by_count=True)
+    cfg = default_config("atari", **over)
+    engines = []
+    for device in ("cuda", "cpu"):
+        vec = atari.AtariVecEnv(16, seed=3, ale_factory=lambda s: atari.FakeALE(seed=s, length=40))
+        engines.append(HostSelfPlayEngine(vec, cfg, _integer_net(vec.spec, 7, muzero=True),
+                                          use_bf16=False, device=device))
+    gpu, cpu = engines
+    before = (fused_tree_step.launches, fused_tree_step.launches_rewards)
+    for mv in range(14):
+        go, co = gpu.move(), cpu.move()
+        assert torch.equal(gpu._ring.cpu(), cpu._ring) and torch.equal(gpu._ahist.cpu(), cpu._ahist)
+        assert torch.equal(gpu.features().cpu(), cpu.features()), f"move {mv}"
+        np.testing.assert_array_equal(go.action, co.action, err_msg=f"move {mv}")
+        np.testing.assert_array_equal(go.reward, co.reward)
+        np.testing.assert_array_equal(go.frames, co.frames)
+        np.testing.assert_allclose(go.policy_target, co.policy_target, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(go.root_value, co.root_value, rtol=1e-5, atol=1e-5)
+        assert gpu.vec_env.reset_done() == cpu.vec_env.reset_done()
+    after = (fused_tree_step.launches, fused_tree_step.launches_rewards)
+    assert (after[0] - before[0], after[1] - before[1]) == (0, 14 * 9)
+
+
+@pytest.mark.gpu
+def test_frame_window_assembly_on_card_matches_cpu():
+    """The frame window on the card and on the CPU, fed the same records
+    (chunks with lead history, a wrapped ring): the stacks of random gather
+    plans are byte-equal, and equal the host-memory path's."""
+    _need_card()
+    from minizero_tpu_torch.learner.frame_window import FrameWindow
+    from minizero_tpu_torch.learner.replay import GameRecord
+
+    rng = np.random.default_rng(2)
+    windows = [FrameWindow(700, 96, 96, device="cuda"), FrameWindow(700, 96, 96, device="cpu"),
+               FrameWindow(700, 96, 96, device="cpu", on_device=False)]
+    records = []
+    for i in range(12):
+        n, lead = int(rng.integers(20, 120)), int(rng.integers(0, 9))
+        rec = GameRecord(actions=rng.integers(0, 18, n).astype(np.int32),
+                         policy=np.zeros((n, 18), np.float16), values=np.zeros(n, np.float32),
+                         rewards=np.zeros(n, np.float32), features=None, result=0.0,
+                         frames=rng.integers(0, 256, (lead + n, 96, 96, 3)).astype(np.uint8),
+                         frame_lead=lead, lead_actions=rng.integers(0, 18, lead).astype(np.int32))
+        for fw in windows:
+            fw.add(rec)
+        records.append(rec)
+    live = [r for r in records if r in windows[0]]
+    assert len(live) < len(records) and all(all(r in fw for fw in windows) for r in live)
+    pick = rng.integers(0, len(live), 256)
+    recs = [live[i] for i in pick]
+    pos = np.array([rng.integers(0, r.length) for r in recs])
+    plans = [fw.lookup(recs, pos) for fw in windows]
+    got = [fw.assemble(plan) for fw, plan in zip(windows, plans)]
+    assert got[0].device.type == "cuda" and got[0].dtype == torch.uint8
+    assert torch.equal(got[0].cpu(), got[1]) and torch.equal(got[1], got[2])
 
 
 def _console_cfg(**over):
@@ -1168,6 +1245,10 @@ def test_port_and_chip_smoke_import_without_jax():
         "        'minizero_tpu_torch.learner.train', 'minizero_tpu_torch.native',",
         "        'minizero_tpu_torch.eval.match', 'minizero_tpu_torch.console.gtp',",
         "        'minizero_tpu_torch.utils.progress', 'minizero_tpu_torch.utils.color_message',",
+        "        'minizero_tpu_torch.selfplay.host_engine', 'minizero_tpu_torch.learner.frame_window',",
+        "        'minizero_tpu_torch.tools.obs', 'minizero_tpu_torch.envs.linesofaction',",
+        "        'minizero_tpu_torch.envs.surakarta', 'minizero_tpu_torch.envs.santorini',",
+        "        'minizero_tpu_torch.envs.amazons', 'minizero_tpu_torch.envs.cycle',",
         "        'minizero_tpu_torch.__main__'} <= set(names), names",
         "import chip_smoke",
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'minizero_tpu') and sys.modules[k] is not None",

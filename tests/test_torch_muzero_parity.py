@@ -15,8 +15,8 @@ to the checks of ``tests/test_reference_parity.py``:
     root mean 1e-4, raw root value 1e-5, policy target 2e-4; game
     termination exact.
   * Atari (``:224``, through ``make_muzero_search``, the reward regime):
-    features come from the JAX package's ``AtariEnv`` on the stub ALE's
-    numpy twin; checksums, legal counts, actions and trajectories exact;
+    features come from the port's ``AtariEnv`` on the stub ALE's numpy
+    twin; checksums, legal counts, actions and trajectories exact;
     root visit counts exact except on at most one move per game, which may
     differ by one transposed visit (L1 <= 2: the reference computes the PUCT
     u-term in double, the port in float32, and the value rescale's margins
@@ -126,8 +126,6 @@ def test_go9_muzero_dump_replays_through_the_port(dump, sims, one_thread):
 
 
 def test_atari_mz16_dump_replays_through_the_port(one_thread):
-    from minizero_tpu.envs.atari import AtariEnv  # the features of the stub ALE
-
     games = _load_dump(os.path.join(PARITY_DIR, "atari_mz16.jsonl"))
     assert sum(len(g["moves"]) for g in games.values()) == 72
     cfg = default_config("atari").load_string(
@@ -139,7 +137,7 @@ def test_atari_mz16_dump_replays_through_the_port(one_thread):
     search = make_muzero_search(TorchMuZeroParityNet("atari", atari_mode=True), sspec,
                                 lambda a: atari.action_features(a, spec), num_players=1,
                                 discrete_value=True)
-    env = AtariEnv(seed=1000, ale_factory=lambda s: ParityFakeALE(s))
+    env = atari.AtariEnv(seed=1000, ale_factory=lambda s: ParityFakeALE(s))
 
     max_dev = {"mean": 0.0, "value": 0.0, "policy": 0.0}
     soft_misses = {g: 0 for g in games}

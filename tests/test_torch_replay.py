@@ -271,16 +271,30 @@ def test_sampled_batches_are_identical(case, per_game_path):
 
 
 def test_frames_schema_sampling_raises():
-    _, tcfg = _cfgs()
-    spec = make_env(tcfg).spec
-    buf = ReplayBuffer(tcfg, spec)
-    rec = _random_record(np.random.default_rng(0), spec, 4)
-    rec.features = None
-    rec.frames = np.zeros((4, 5, 5, 3), np.uint8)
-    buf.add_game(rec)
-    assert buf.frames_mode
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        buf.sample_muzero(2, np.random.RandomState(0))
+    """Frames-schema records (Atari) sample like JAX's: ``sample_muzero``
+    returns the targets and the (game, position) pairs without features
+    (the loop assembles them from its frame window), on the flat and on the
+    per-game path; ``sample_alphazero`` raises, as in JAX."""
+    for per_game_path in (False, True):
+        jcfg, tcfg = _cfgs(learner_n_step_return=3, learner_muzero_unrolling_step=3)
+        spec = make_env(tcfg).spec
+        jbuf, tbuf = JReplayBuffer(jcfg, spec), ReplayBuffer(tcfg, spec)
+        if per_game_path:
+            jbuf.FLAT_FEATURE_CACHE_MAX_BYTES = tbuf.FLAT_FEATURE_CACHE_MAX_BYTES = 0
+        rng = np.random.default_rng(0)
+        for i in range(5):
+            rec = _random_record(rng, spec, 4 + i)
+            rec.features = None
+            rec.frames = np.zeros((4 + i, 5, 5, 3), np.uint8)
+            jbuf.add_game(JGameRecord(**dataclasses.asdict(rec)))
+            tbuf.add_game(rec)
+        assert tbuf.frames_mode and jbuf.frames_mode
+        got = tbuf.sample_muzero(6, np.random.RandomState(1))
+        want = jbuf.sample_muzero(6, np.random.RandomState(1))
+        assert "features" not in got
+        _assert_same_batch(got, want, f"frames schema, per-game path {per_game_path}")
+        with pytest.raises(NotImplementedError, match="sample_muzero"):
+            tbuf.sample_alphazero(2, np.random.RandomState(0))
 
 
 # ----------------------------------------------------- the trainer's helpers
