@@ -11,8 +11,9 @@ the families Othello, NoGo, Kill-All-Go, Clobber, Gomoku and Hex, then 2048
 (with its trained net), Tetris Block Puzzle, Rubik's cube, Connect6, Dots
 and Boxes, Breakthrough, ConHex and Havannah, then Atari's self-play over
 the host env and its zero iteration, and Lines of Action, Surakarta,
-Santorini and Amazons, and holds every CUDA kernel of them against its
-plain PyTorch version on the card:
+Santorini and Amazons, then the tools (the profiler and its trace report
+among them) and the zero loop over ``torch.distributed``, and holds every
+CUDA kernel of them against its plain PyTorch version on the card:
 
 - the flagship Go 9x9 Gumbel AlphaZero path, n=16, 1024 games (tree step
   B1, ``csrc/tree_step.cu``, board regime);
@@ -82,8 +83,8 @@ Phases:
      Clobber 10x10 (gaz n=16 on B1's wide kernel at A=400; az n=50 on B2's
      wide kernel and B3, 4 moves), 8e Gomoku 15x15 and Hex 11x11: gaz n=16
      at B=1024 from seeded 1 x 256 nets, one move with every launch beside
-     its plain version, then 8 moves of ``move_scan`` with exact launch
-     counts and every action legal.
+     its plain version, then 4 moves of ``move_scan`` with exact launch
+     counts and every action legal (8 moves for the trained Othello net).
   9. the stochastic puzzles and the rest of group 3: 9a 2048 gmz n=16 with
      the trained ``runs/p2048_gmz_r5`` net of ``minizero_tpu_torch/assets/``
      (B1's board regime with value rescale: the board-game MuZero net has
@@ -97,7 +98,7 @@ Phases:
      tree: B1'); 9d Tetris Block Puzzle gmz and gaz n=16 (A=801, B1's wide
      kernel; gaz in its reward regime with the Gumbel root); 9e Rubik's,
      Connect6, Dots and Boxes, Breakthrough, ConHex and Havannah gaz n=16:
-     each 1 checked move, 1 warm-up and 8 moves of ``move_scan`` as in 8c.
+     each 1 checked move, 1 warm-up and 4 moves of ``move_scan`` as in 8c.
  10. Atari over the host env at ``runs/atari_gmz_r5_b128``'s widths
      (Gumbel MuZero n=18, B1' with the Gumbel root, 128 games in lock-step
      on FakeALE(length=900), a seeded net, bf16), and group 5: 10a the host
@@ -114,6 +115,22 @@ Phases:
      B=32 over 50-move episodes; 10d Lines of Action,
      Surakarta, Santorini and Amazons gaz n=16 at B=1024 on B1's wide kernel
      (A = 1,456 / 1,296 / 1,900 / 3,040), as in 9e.
+ 11. the tools and the data-parallel zero loop: 11a ``tools/analysis.py``'s
+     parsers on phase 6's gaz logs (equal to the op.log lines), its plots or,
+     without matplotlib, the loop's one ``[Analysis] skipped`` line,
+     ``tools/to_sgf.py`` on the run's 1024 records, ``-mode remove_obs`` on
+     16 of phase 10b's records and ``recover_obs_file`` with an
+     ``AtariObsReplayer`` over FakeALE (every OBS tag equal to the stripped
+     one); 11b ``tools/profile.py`` at the flagship's widths (8 steady
+     moves, 20 SGD steps at batch 1024) with a trace, and
+     ``tools/trace_report.py`` on it: B1 exactly 17 launches a steady move,
+     its mean time and the window's device time a move; then, side by
+     side, 11c ``-mode zero -multi_device`` under ``torch.distributed.run
+     --nproc_per_node=1`` on NCCL (256 games, 50 SGD steps at batch 1024)
+     and 11d two gloo ranks on the one card (2 x 128 games, 20 SGD steps
+     at global batch 256): record shards, one checkpoint from rank 0, the
+     hosts line, each rank's B1 launches, and bitwise equal parameters on
+     every rank.
 
 Prints one progress line per phase, then a JSON line of kernel numbers, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -1442,7 +1459,10 @@ WIDE_NODES = (17, 201)
 WIDE_TREE_BYTES = 4 << 30
 WIDE_SMALL_BATCH = 256
 WIDE_CHECKED_STEPS = (0, 1, 2, 100, 199, 200)
-FAMILY_MOVES = 8
+TRAINED_FAMILY_MOVES = 8  # Othello's and 2048's trained nets (8b, 9a)
+# the untrained family paths (8c-8e, 9c-9e, 10d): 4 moves since the script
+# passed 900 s with phase 11 (8 before)
+FAMILY_MOVES = 4
 CLOBBER_AZ_SIMS = 50
 CLOBBER_AZ_MOVES = 4
 OTHELLO_NPZ = os.path.join("minizero_tpu_torch", "assets", "oth8_gaz_r5_iter60000.npz")
@@ -1776,7 +1796,7 @@ def phase8(zero_counts, counts) -> dict:
     onet.load_state_dict(from_jax_variables(load_variables_npz(os.path.join(ROOT, OTHELLO_NPZ)),
                                             hidden_hw=64))
     trained = {k: v.clone() for k, v in onet.state_dict().items()}
-    r = family_path("othello", "gaz", {}, FAMILY_MOVES, 40, zero_counts, counts, trained)
+    r = family_path("othello", "gaz", {}, TRAINED_FAMILY_MOVES, 40, zero_counts, counts, trained)
     out["paths"]["othello"] = r
     log(f"phase 8b {family_line(r)} (trained net {OTHELLO_NPZ})")
     oth_zero = zero_iteration("gaz", 41, zero_counts, counts, env_name="othello")
@@ -1875,7 +1895,8 @@ def phase9(zero_counts, counts) -> dict:
     trained.load_state_dict(from_jax_muzero_variables(
         load_variables_npz(os.path.join(ROOT, P2048_NPZ)), hidden_hw=16))
     trained_sd = {k: v.clone() for k, v in trained.state_dict().items()}
-    r = family_path("puzzle2048", "gmz", {}, FAMILY_MOVES, 50, zero_counts, counts, trained_sd)
+    r = family_path("puzzle2048", "gmz", {}, TRAINED_FAMILY_MOVES, 50, zero_counts, counts,
+                    trained_sd)
     out["puzzle2048_gmz"] = r
     log(f"phase 9a {family_line(r)} (trained net {P2048_NPZ}, value rescale "
         f"{r['cfg'].actor_mcts_value_rescale}; the board-game MuZero net has no reward head, "
@@ -2183,6 +2204,7 @@ def atari_zero_iteration(zero_counts, counts) -> dict:
                 for r, a in zip(fresh.buffer.games, loop.buffer.games)):
             fail(f"{what}: resume did not rebuild the buffer and the window from the records")
         lengths = np.asarray([r.length for r in loop.buffer.games])
+        out["obs_records"] = lines[:OBS_RECOVERED]
         out.update(cfg=cfg, games=games, moves=moves, launches=launches["tree_step_rewards"],
                    selfplay_s=row["selfplay_s"], optimize_s=row["optimize_s"], timing=timing,
                    ms_per_step=timer.ms_per_step(), len_min=int(lengths.min()),
@@ -2277,6 +2299,306 @@ def phase10(zero_counts, counts) -> dict:
         r = family_path(env_name, "gaz", {}, FAMILY_MOVES, seed, zero_counts, counts)
         out[f"{env_name}_gaz"] = r
         log(f"phase 10d {family_line(r)}; in {time.perf_counter() - t:.2f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the tools and the data-parallel zero loop
+# ---------------------------------------------------------------------------
+
+OBS_RECOVERED = 16  # phase 10b's records stripped of OBS and recovered
+PROFILE_MOVES = 8
+PROFILE_TRAIN_STEPS = 20
+DP_GAMES_NCCL = 256  # 11c: games in lock-step on one NCCL rank
+DP_STEPS_NCCL = 50
+DP_GAMES_GLOO = 128  # 11d: games a rank, two gloo ranks on the card
+DP_STEPS_GLOO = 20
+DP_BATCH_GLOO = 256  # the global batch of 11d
+DP_TIMEOUT = 300
+PHASE5_BUSY_MS = (34.3, 34.5)  # PERF.md §5: one gaz move's device busy time
+B1_PERF_MS = 0.0076  # PERF.md §6: B1 at sim 8, B=1024
+
+# one rank of ``-mode zero -multi_device`` under torch.distributed.run:
+# joins the group with the backend asked for (or the CLI's default), runs the
+# CLI, then writes what the rank ended with: its flat parameters, its B1
+# launches, its moves and the group it ran in
+DP_RANK_SCRIPT = r"""
+import os, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from minizero_tpu_torch.__main__ import main
+from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
+from minizero_tpu_torch.parallel.distributed import init_distributed
+import minizero_tpu_torch.zero.loop as zero_loop
+backend, out_dir, argv = sys.argv[2], sys.argv[3], sys.argv[4:]
+if backend != "default":
+    init_distributed(backend=backend)
+loops = []
+run = zero_loop.ZeroLoop.run
+zero_loop.ZeroLoop.run = lambda self: (loops.append(self), run(self))[1]
+rc = main(argv)
+loop = loops[0]
+torch.cuda.synchronize()
+timing = loop.last_selfplay_timing
+torch.save({"rc": rc, "rank": loop.pid, "world": loop.num_procs, "backend": dist.get_backend(),
+            "device": str(loop.device), "launches": fused_tree_step.launches,
+            "moves": timing["chunks"] * timing["moves_per_chunk"],
+            "flat": torch.cat([p.detach().reshape(-1) for p in loop.network.parameters()]).cpu()},
+           os.path.join(out_dir, f"rank{loop.pid}.pt"))
+dist.destroy_process_group()
+print(f"RANK_{loop.pid}_DONE", flush=True)
+"""
+
+
+def tools_phase(gaz_dir: str, atari_records, games: int = ZERO_GAMES) -> dict:
+    """11a: the analysis parsers, the plots (or their skip line) and the SGF
+    conversion on phase 6's gaz run; ``-mode remove_obs`` on phase 10b's
+    first records, then ``recover_obs_file`` with an ``AtariObsReplayer``
+    over FakeALE: every recovered OBS tag equal to the stripped one."""
+    from minizero_tpu_torch.__main__ import main as cli
+    from minizero_tpu_torch.tools.analysis import analysis, parse_op_log, parse_training_log
+    from minizero_tpu_torch.tools.obs import AtariObsReplayer, recover_obs_file
+    from minizero_tpu_torch.tools.to_sgf import convert_file
+
+    what = "tools"
+    out = {}
+    tl = parse_training_log(os.path.join(gaz_dir, "Training.log"))
+    if tl.get("iteration") != [1] or not all(len(tl.get(k, [])) == 1 for k in (
+            "sp_time_s", "length_avg", "return_avg", "op_time_s")):
+        fail(f"{what}: parse_training_log of the gaz run gave {dict(tl)}")
+    op_lines = open(os.path.join(gaz_dir, "op.log")).read().splitlines()
+    logged = [re.search(r"nn step (\d+), lr: \S+\. (.*)", ln) for ln in op_lines]
+    op = parse_op_log(os.path.join(gaz_dir, "op.log"))
+    if op.get("step") != [int(m.group(1)) for m in logged] or not op_lines:
+        fail(f"{what}: parse_op_log's steps {op.get('step')} are not the op.log lines'")
+    for key in ("loss", "loss_policy", "loss_value", "accuracy_policy"):
+        want = [float(dict(kv.split(": ") for kv in re.findall(r"\w+: \S+", m.group(2)))[key])
+                for m in logged]
+        if op.get(key) != want:
+            fail(f"{what}: parse_op_log's {key} differs from the op.log lines")
+    out["iterations"], out["op_steps"] = tl["iteration"], op["step"]
+    train_log = open(os.path.join(gaz_dir, "Training.log")).read()
+    try:
+        import matplotlib  # noqa: F401
+        written = analysis(gaz_dir)
+        if not written or not all(os.path.getsize(f) > 0 for f in written):
+            fail(f"{what}: analysis wrote {written}")
+        out["plots"] = f"{len(written)} PNGs"
+    except ImportError:
+        if train_log.count("[Analysis] skipped:") != 1:
+            fail(f"{what}: no matplotlib, and Training.log lacks its one [Analysis] skipped line")
+        out["plots"] = "matplotlib absent: one [Analysis] skipped line in Training.log"
+    with tempfile.TemporaryDirectory(prefix="tools_") as d:
+        sgf = os.path.join(d, "gaz.sgf")
+        t = time.perf_counter()
+        n = convert_file(os.path.join(gaz_dir, "sgf", "1.sgf"), sgf)
+        out["sgf_s"] = time.perf_counter() - t
+        lines = open(sgf).read().splitlines()
+        if n != games or len(lines) != n or not all(
+                ln.startswith("(;FF[4]GM[1]SZ[9]") for ln in lines):
+            fail(f"{what}: convert_file gave {n} records, {len(lines)} lines")
+        out["sgf"] = n
+        with_obs = os.path.join(d, "atari.sgf")
+        with open(with_obs, "w") as f:
+            f.write("".join(ln + "\n" for ln in atari_records))
+        stripped, recovered = with_obs + ".noobs", with_obs + ".obs"
+        t = time.perf_counter()
+        text, _ = run_cli(["-mode", "remove_obs", "-input", with_obs, "-output", stripped])
+        out["remove_s"] = time.perf_counter() - t
+        kept = open(stripped).read().splitlines()
+        if f"stripped OBS from {len(atari_records)} records" not in text or any(
+                "OBS[" in ln for ln in kept) or len(kept) != len(atari_records):
+            fail(f"{what}: -mode remove_obs: {text.strip()}")
+        t = time.perf_counter()
+        n = recover_obs_file(stripped, recovered, AtariObsReplayer(ale_factory=_fake_ale))
+        out["recover_s"] = time.perf_counter() - t
+        back = open(recovered).read().splitlines()
+        tag = re.compile(r"OBS\[([0-9a-f]*)\]")
+        for i, (a, b) in enumerate(zip(atari_records, back)):
+            if tag.search(b) is None or tag.search(a).group(1) != tag.search(b).group(1):
+                fail(f"{what}: record {i}'s recovered OBS differs from the stripped one")
+        if n != len(atari_records) or len(back) != n:
+            fail(f"{what}: recover_obs_file handled {n} of {len(atari_records)} records")
+        out["obs"] = n
+        out["obs_mib"] = sum(len(tag.search(a).group(1)) for a in atari_records) / 2**20
+    return out
+
+
+def profile_phase(zero_counts, counts) -> dict:
+    """11b: ``tools/profile.py`` at the flagship's widths with a trace,
+    then ``tools/trace_report.py`` on the steady self-play window: B1's
+    launches there exactly 17 a move, its mean time and the window's device
+    time a move."""
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.tools import profile, trace_report
+
+    what = "profile"
+    over = dict(algorithm_preset("gaz"))
+    over.update(learner_batch_size=ZERO_BATCH, program_seed=31)
+    cfg = default_config("go", **over)
+    with tempfile.TemporaryDirectory(prefix="trace_") as trace_dir:
+        zero_counts()
+        t = time.perf_counter()
+        rows = profile.profile_selfplay(cfg, moves=PROFILE_MOVES, batch=BATCH, trace_dir=trace_dir,
+                                        train_steps=PROFILE_TRAIN_STEPS)
+        seconds = time.perf_counter() - t
+        launches = counts()
+        per_move = cfg.actor_num_simulation + 1
+        if launches["tree_step"] != per_move * (PROFILE_MOVES + 1):
+            fail(f"{what}: launches {launches}, expected {per_move} x {PROFILE_MOVES + 1} moves")
+        phases = {r["phase"]: r for r in rows}
+        if sorted(phases) != ["selfplay_compile", "selfplay_steady", "train_compile",
+                              "train_steady"]:
+            fail(f"{what}: phases {sorted(phases)}")
+        t = time.perf_counter()
+        sp_trace = os.path.join(trace_dir, profile.SELFPLAY_TRACE)
+        by_op, total_us = trace_report.aggregate(sp_trace)
+        by_source, _ = trace_report.aggregate(sp_trace, by="source")
+        train_rows, train_us = trace_report.aggregate(os.path.join(trace_dir, profile.TRAIN_TRACE))
+        report_s = time.perf_counter() - t
+        b1 = [(k, us, c) for k, us, c in by_op if "tree_step_kernel<" in k]
+        b1_count = sum(c for _, _, c in b1)
+        if b1_count != per_move * PROFILE_MOVES:
+            fail(f"{what}: the trace's steady window has {b1_count} B1 launches, expected "
+                 f"{per_move} x {PROFILE_MOVES}: {b1}")
+        trace_mib = sum(os.path.getsize(os.path.join(trace_dir, f))
+                        for f in os.listdir(trace_dir)) / 2**20
+    return {"rows": rows, "seconds": seconds, "b1_launches": b1_count,
+            "b1_ms": sum(us for _, us, _ in b1) / 1e3 / b1_count,
+            "device_ms_per_move": total_us / 1e3 / PROFILE_MOVES,
+            "steady_ms_per_move": 1e3 * phases["selfplay_steady"]["seconds"] / PROFILE_MOVES,
+            "train_device_ms_per_step": train_us / 1e3 / PROFILE_TRAIN_STEPS,
+            "train_ms_per_step": 1e3 * phases["train_steady"]["seconds"] / PROFILE_TRAIN_STEPS,
+            "top": by_op[:5], "top_source": by_source[:5], "train_top": train_rows[:3],
+            "report_s": report_s, "trace_mib": trace_mib}
+
+
+def data_parallel_run(nproc: int, backend: str, games_per_rank: int, steps: int,
+                      batch: int) -> dict:
+    """``-mode zero -multi_device`` for one flagship iteration (gaz n=16,
+    1 x 256) under ``python -m torch.distributed.run --standalone
+    --nproc_per_node=nproc``, the ranks on this card; checks each rank's
+    record shard, the checkpoint, the hosts line, the B1 launches of each
+    rank, and that every rank ends with bitwise the same parameters."""
+    from minizero_tpu_torch.config import algorithm_preset
+
+    what = f"-multi_device ({nproc} rank(s), {backend})"
+    over = dict(algorithm_preset("gaz"))
+    over.update(zero_num_parallel_games=games_per_rank * nproc,
+                zero_num_games_per_iteration=games_per_rank * nproc,
+                learner_batch_size=batch, learner_training_step=steps,
+                learner_training_display_step=10, zero_end_iteration=1, program_seed=41)
+    conf = "env_name=go:" + ":".join(f"{k}={v}" for k, v in over.items())
+    with tempfile.TemporaryDirectory(prefix="dp_") as d:
+        script = os.path.join(d, "rank.py")
+        with open(script, "w") as f:
+            f.write(DP_RANK_SCRIPT)
+        run_dir = os.path.join(d, "run")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={nproc}", script, ROOT, backend, d, "-mode", "zero",
+               "-multi_device", "-run_dir", run_dir, "-conf_str", conf]
+        t = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                                  timeout=DP_TIMEOUT)
+        except subprocess.TimeoutExpired as e:
+            fail(f"{what}: no end within {DP_TIMEOUT} s: {(e.stdout or '')[-3000:]}")
+        seconds = time.perf_counter() - t
+        if proc.returncode != 0:
+            fail(f"{what}: exit {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                 for r in range(nproc)]
+        for r, rk in enumerate(ranks):
+            want_backend = "nccl" if backend == "default" else backend
+            if (rk["rc"], rk["rank"], rk["world"], rk["backend"]) != (0, r, nproc, want_backend):
+                fail(f"{what}: rank {r} ran as {rk}")
+            if rk["launches"] != rk["moves"] * 17 or rk["moves"] == 0:
+                fail(f"{what}: rank {r}: {rk['launches']} B1 launches over {rk['moves']} moves")
+            if not torch.equal(rk["flat"], ranks[0]["flat"]):
+                fail(f"{what}: rank {r}'s parameters differ from rank 0's")
+        shards = sorted(os.listdir(os.path.join(run_dir, "sgf")))
+        want_shards = sorted(["1.sgf"] + [f"1.p{r}.sgf" for r in range(1, nproc)])
+        if shards != want_shards:
+            fail(f"{what}: record shards {shards}, expected {want_shards}")
+        for name in shards:
+            lines = open(os.path.join(run_dir, "sgf", name)).read().splitlines()
+            if len(lines) != games_per_rank or not all(ln.startswith("(;GM[go")
+                                                       for ln in lines):
+                fail(f"{what}: {name} holds {len(lines)} records, expected {games_per_rank}")
+        ckpts = sorted(os.listdir(os.path.join(run_dir, "model")))
+        if ckpts != ["weight_iter_0.ckpt", f"weight_iter_{steps}.ckpt"]:
+            fail(f"{what}: checkpoints {ckpts}")
+        saved = torch.load(os.path.join(run_dir, "model", f"weight_iter_{steps}.ckpt"),
+                           map_location="cpu", weights_only=True)["model"]
+        flat = torch.cat([v.reshape(-1).float() for k, v in saved.items()
+                          if not k.endswith(("running_mean", "running_var", "num_batches_tracked"))])
+        if not torch.equal(flat, ranks[0]["flat"].float()):
+            fail(f"{what}: the checkpoint is not the ranks' final parameters")
+        logs = ["Training.log"] + [f"Training.p{r}.log" for r in range(1, nproc)]
+        lines = [ln for ln in open(os.path.join(run_dir, "Training.log"))
+                 if f"games/s, {nproc} hosts)" in ln]
+        if len(lines) != 1 or not all(os.path.exists(os.path.join(run_dir, x)) for x in logs):
+            fail(f"{what}: no one '({nproc} hosts)' line, or a rank's log is missing")
+        perf = json.loads(open(os.path.join(run_dir, "perf.jsonl")).readline())
+        return {"seconds": seconds, "hosts_line": lines[0].split("] ", 1)[1].strip(),
+                "moves": [rk["moves"] for rk in ranks],
+                "launches": [rk["launches"] for rk in ranks], "selfplay_s": perf["selfplay_s"],
+                "optimize_s": perf["optimize_s"], "params": ranks[0]["flat"].numel(),
+                "devices": [rk["device"] for rk in ranks]}
+
+
+def phase11(gaz_dir: str, atari_records, zero_counts, counts) -> dict:
+    """Phase 11 (see the module's docstring); returns its numbers."""
+    out = {}
+    t = time.perf_counter()
+    a = tools_phase(gaz_dir, atari_records)
+    out["tools"] = a
+    log(f"phase 11a tools: parse_training_log of phase 6's gaz run: iterations {a['iterations']}; "
+        f"parse_op_log: {len(a['op_steps'])} nn step lines equal to op.log's; plots: "
+        f"{a['plots']}; to_sgf.convert_file: {a['sgf']} records as (;FF[4]GM[1]SZ[9] lines in "
+        f"{a['sgf_s']:.2f} s; -mode remove_obs on {a['obs']} of phase 10b's records "
+        f"({a['obs_mib']:.1f} MiB of OBS) in {a['remove_s']:.2f} s, recover_obs_file with "
+        f"AtariObsReplayer over FakeALE in {a['recover_s']:.2f} s: every OBS tag equal to the "
+        f"stripped one; in {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    p = profile_phase(zero_counts, counts)
+    out["profile"] = p
+    log("phase 11b tools/profile.py (gaz n=16, 1x256 bf16, B=" + str(BATCH)
+        + f", {PROFILE_MOVES} steady moves, {PROFILE_TRAIN_STEPS} SGD steps at batch "
+        f"{ZERO_BATCH}, -trace_dir): " + " ".join(json.dumps(r) for r in p["rows"])
+        + f"; trace_report of the steady self-play window ({p['trace_mib']:.1f} MiB of traces, "
+        f"read in {p['report_s']:.2f} s): B1 {p['b1_launches']} launches (= 17 x "
+        f"{PROFILE_MOVES}), mean {p['b1_ms']:.5f} ms (PERF.md: {B1_PERF_MS} ms); device time "
+        f"{p['device_ms_per_move']:.2f} ms a move of {p['steady_ms_per_move']:.1f} ms under the "
+        f"profiler (phase 5 busy {PHASE5_BUSY_MS[0]}-{PHASE5_BUSY_MS[1]} ms); SGD device "
+        f"{p['train_device_ms_per_step']:.2f} ms a step of {p['train_ms_per_step']:.2f} ms; top "
+        f"kernels: " + "; ".join(f"{k[:50]} {us / 1e3:.2f} ms x{c}" for k, us, c in p["top"])
+        + "; by source: " + "; ".join(f"{k[:40]} {us / 1e3:.2f} ms x{c}"
+                                      for k, us, c in p["top_source"])
+        + f"; in {time.perf_counter() - t:.2f} s")
+    # 11c and 11d run at the same time: three host-bound processes on the
+    # card and on separate cores (each alone took 58-69 s, mostly start-up
+    # and ~176 host-bound moves)
+    from concurrent.futures import ThreadPoolExecutor
+
+    runs = (("nccl1", 1, "default", DP_GAMES_NCCL, DP_STEPS_NCCL, ZERO_BATCH),
+            ("gloo2", 2, "gloo", DP_GAMES_GLOO, DP_STEPS_GLOO, DP_BATCH_GLOO))
+    t = time.perf_counter()
+    with ThreadPoolExecutor(len(runs)) as pool:
+        futures = [pool.submit(data_parallel_run, *args[1:]) for args in runs]
+        done = [f.result() for f in futures]  # a failed check's exit comes through here
+    log(f"phase 11c and 11d side by side in {time.perf_counter() - t:.2f} s")
+    for (key, nproc, backend, games, steps, batch), r in zip(runs, done):
+        out[key] = r
+        log(f"phase 11{'c' if nproc == 1 else 'd'} -mode zero -multi_device under "
+            f"torch.distributed.run --nproc_per_node={nproc} ({backend if nproc > 1 else 'nccl'}"
+            f"; ranks on {', '.join(r['devices'])}; gaz n=16, 1x256, {games} games a rank in "
+            f"lock-step, {steps} SGD steps at global batch {batch}): '{r['hosts_line']}'; record "
+            f"shards, one checkpoint from rank 0 equal to every rank's {r['params']} parameters "
+            f"(bitwise equal across ranks); B1 launches {r['launches']} = 17 x moves "
+            f"{r['moves']}; self-play {r['selfplay_s']:.2f} s, optimize {r['optimize_s']:.2f} s; "
+            f"command {r['seconds']:.2f} s (beside the other run)")
     return out
 
 
@@ -2811,6 +3133,10 @@ def main() -> None:
             "launches": r["launches"]["tree_step"], "max_abs_err": r["err"], "ms": r["b1"][0],
             "plain_ms": r["b1"][1], "bound_ms": r["b1"][2], "bound_by": r["b1"][3],
             "library_ms": None})
+    # ---- 11. the tools; the data-parallel zero loop -------------------------
+    t = time.perf_counter()
+    p11 = phase11(gaz_dir, p10["atari_zero"].pop("obs_records"), zero_counts, counts)
+    log(f"phase 11 done in {time.perf_counter() - t:.2f} s")
     families = {key: {"ms_per_move": r["ms_per_move"], "env_steps_per_s": r["steps_per_s"]}
                 for key, r in {**p8["paths"], **p9, **p10}.items()
                 if isinstance(r, dict) and "steps_per_s" in r}
@@ -2897,7 +3223,12 @@ def main() -> None:
         "atari_host_env_ms": ah["env_ms"], "atari_zero_selfplay_s": az_["selfplay_s"],
         "atari_zero_b1_launches": az_["launches"],
         "atari_zero_sgd_steps_per_s": 1e3 / az_["ms_per_step"],
-        "atari_zero_window_gb": az_["window_gb"]}
+        "atari_zero_window_gb": az_["window_gb"],
+        "profile_b1_launches": p11["profile"]["b1_launches"],
+        "profile_b1_ms": p11["profile"]["b1_ms"],
+        "profile_device_ms_per_move": p11["profile"]["device_ms_per_move"],
+        **{f"multi_device_{key}_{k}": p11[key][k] for key in ("nccl1", "gloo2")
+           for k in ("seconds", "selfplay_s", "optimize_s")}}
     print(json.dumps(result), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -6,16 +6,21 @@
 
 Modes (``mode_handler.cpp:20-27``): ``console`` (GTP on stdin), ``sp``
 (standalone self-play to a record file; for Atari over the host env, with
-SD, LL and OBS record tags), ``zero`` (the single-device zero
-training loop, continuing from the run directory's newest checkpoint),
-``env_test`` (random playout and replay self-check), ``zero_training_name``
-(the canonical run name), ``eval`` (a training run's checkpoint ladder, or
-two runs against each other with ``-run_dir_b``). ``-gen`` writes an
-annotated config file and exits. Everything runs on the card unless
-``-platform cpu`` asks for the CPU.
+SD, LL and OBS record tags), ``zero`` (the zero training loop, continuing
+from the run directory's newest checkpoint), ``env_test`` (random playout
+and replay self-check), ``zero_training_name`` (the canonical run name),
+``eval`` (a training run's checkpoint ladder, or two runs against each
+other with ``-run_dir_b``), ``remove_obs`` / ``recover_obs`` (strip the OBS
+tags of ``-input``'s records, or put them back by replaying each Atari
+episode from its seed). ``-gen`` writes an annotated config file and exits.
+Everything runs on the card unless ``-platform cpu`` asks for the CPU.
 
-Not ported (ROADMAP.md): ``-multi_device`` (A11), ``remove_obs`` and
-``recover_obs`` (A12).
+``-mode zero -multi_device`` trains data-parallel over ``torch.distributed``
+(``parallel/``): under a launcher (``python -m torch.distributed.run
+--nproc_per_node=N -m minizero_tpu_torch ...``) each process joins the
+group, even a group of one; without one, with more than one visible card,
+it spawns one process a card with a local rendezvous; with one card it runs
+the plain loop.
 """
 
 from __future__ import annotations
@@ -201,7 +206,8 @@ def main(argv=None, device=None) -> int:
     parser.add_argument("-iteration", default="",
                         help="checkpoint file name for the cross-run eval (default: latest)")
     parser.add_argument("-multi_device", action="store_true",
-                        help="zero mode over several cards (not ported yet)")
+                        help="zero mode: data-parallel over every visible card, or over the "
+                             "ranks of a torch.distributed launcher")
     parser.add_argument("-platform", default="", help="cpu, or gpu / cuda (the default)")
     args = parser.parse_args(argv)
     if device is None:
@@ -219,12 +225,6 @@ def main(argv=None, device=None) -> int:
         cfg.save_file(args.gen)
         print(f"wrote {args.gen}")
         return 0
-    if args.multi_device:
-        raise NotImplementedError("-multi_device is not ported yet (ROADMAP.md, A11)")
-    if args.mode in ("remove_obs", "recover_obs"):
-        raise NotImplementedError(
-            f"-mode {args.mode} (the OBS tools) is not ported yet (ROADMAP.md, A12)")
-
     if args.mode == "zero_training_name":
         print(training_name(cfg))
     elif args.mode == "env_test":
@@ -239,16 +239,72 @@ def main(argv=None, device=None) -> int:
         from minizero_tpu_torch.eval.match import run_eval_cli
 
         return run_eval_cli(cfg, args, device)
-    else:
-        from minizero_tpu_torch.zero.loop import ZeroLoop
+    elif args.mode == "remove_obs":
+        from minizero_tpu_torch.tools.obs import remove_obs_file
 
-        loop = ZeroLoop(cfg, args.run_dir, device=device)
-        try:
-            loop.resume()  # continue mode when the run dir has checkpoints
-            loop.run()
-        finally:
-            loop.close()
+        n = remove_obs_file(args.input, args.output or args.input + ".noobs")
+        print(f"stripped OBS from {n} records")
+    elif args.mode == "recover_obs":
+        # deterministic seed replay through the env (reference
+        # obs_recover.h:19-83); Atari's real ALE needs the ale_py package
+        from minizero_tpu_torch.tools.obs import AtariObsReplayer, recover_obs_file
+
+        replayer = AtariObsReplayer(rom_dir=cfg.env_atari_rom_dir)
+        n = recover_obs_file(args.input, args.output or args.input + ".obs", replayer)
+        print(f"recovered OBS for {n} records")
+    else:
+        return run_zero(cfg, args, argv, device)
     return 0
+
+
+def run_zero(cfg, args, argv, device=None) -> int:
+    """``-mode zero``: the loop, continuing from the run directory's newest
+    checkpoint; with ``-multi_device`` one rank of a data-parallel run."""
+    from minizero_tpu_torch.parallel.distributed import init_distributed, under_launcher
+    from minizero_tpu_torch.parallel.mesh import make_mesh
+    from minizero_tpu_torch.zero.loop import ZeroLoop
+
+    mesh = None
+    if args.multi_device:
+        if under_launcher():
+            init_distributed(device=device)
+            mesh = make_mesh(device=device)
+        elif device is None and torch.cuda.device_count() > 1:
+            spawn_ranks(sys.argv[1:] if argv is None else argv, torch.cuda.device_count())
+            return 0
+    loop = ZeroLoop(cfg, args.run_dir, device=device, mesh=mesh)
+    try:
+        loop.resume()  # continue mode when the run dir has checkpoints
+        loop.run()
+    finally:
+        loop.close()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, argv, world: int, port: int, device) -> None:
+    """One spawned rank: the launcher's variables, one torch thread, then
+    the CLI again, which joins the group."""
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    torch.set_num_threads(1)
+    main(argv, device=device)
+
+
+def spawn_ranks(argv, world: int, device=None) -> None:
+    """Run the CLI as ``world`` local ranks (one a card; ``device="cpu"``
+    for gloo ranks on the CPU) with a rendezvous on a free local port;
+    returns when every rank has finished, and raises if one failed."""
+    torch.multiprocessing.spawn(_rank_main, args=(list(argv), world, _free_port(), device),
+                                nprocs=world, join=True)
 
 
 if __name__ == "__main__":

@@ -22,7 +22,7 @@ the activations.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -100,10 +100,14 @@ def _policy_accuracy(logits, label):
     return torch.mean((logits.argmax(-1) == label.argmax(-1)).to(torch.float32))
 
 
-def make_train_step(cfg: Config, env, network: nn.Module):
+def make_train_step(cfg: Config, env, network: nn.Module,
+                    grad_hook: Optional[Callable[[], None]] = None):
     """Returns ``train_step(state, batch, generator=None, rotations=None) ->
     metrics``: one optimizer update of ``state`` in place (the reference's
     per-step body, train.py:163-219); ``state.network`` is ``network``.
+    ``grad_hook()``, where given, runs between the backward pass and the
+    optimizer step (the data-parallel step averages the gradients there,
+    ``parallel/distributed.py``).
 
     ``batch`` holds the replay's sample (``learner/replay.py``) as tensors
     or numpy arrays; features may be bit-packed u8 planes, which the step
@@ -231,6 +235,8 @@ def make_train_step(cfg: Config, env, network: nn.Module):
             loss, metrics = loss_fn(batch, rots)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            if grad_hook is not None:
+                grad_hook()
             state.optimizer.step()
         finally:
             network.eval()

@@ -17,30 +17,79 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over the ranks of the process group whose gradient is the sum
+    of the ranks' gradients, as ``torch.distributed.nn.functional.all_reduce``
+    (deprecated in recent torch releases) computes it."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        x = x.clone()
+        dist.all_reduce(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _AllReduceSum.apply(grad)
+
+
+def _data_parallel() -> bool:
+    """Whether a process group of more than one rank is active."""
+    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
 
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose training step updates the running variance
     with the BIASED batch variance, as flax's ``BatchNorm`` does; torch's
-    own update takes the unbiased one. The forward is torch's in both
-    modes, and eval mode is untouched.
+    own update takes the unbiased one. On one process the forward is
+    torch's in both modes, and eval mode is untouched.
 
     torch leaves ``v' = (1 - m) v + m * var_u`` with ``var_u = var_b * n /
     (n - 1)`` (n values per channel); the wanted ``(1 - m) v + m * var_b``
     is ``v' (n - 1) / n + (1 - m) v / n``, two small per-channel ops after
-    the fused kernel instead of a second pass over the activations."""
+    the fused kernel instead of a second pass over the activations.
+
+    In training under a process group of more than one rank (the
+    data-parallel train step, ``parallel/distributed.py``), the batch mean
+    and variance are those of the global batch, every rank's rows, as XLA
+    computes them in the JAX package's sharded step: the per-channel count
+    and sum, then the centred sum of squares, are summed over the ranks by
+    a differentiable all-reduce. (``nn.SyncBatchNorm`` does the same on a
+    card only; the CPU tests run on gloo.)"""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if _data_parallel():
+            return self._global_batch_forward(x)
         old_var = self.running_var.clone()
         y = super().forward(x)
         n = x.numel() // x.shape[1]
         # a new tensor, not an in-place update: autograd saved this one
         with torch.no_grad():
             self.running_var = self.running_var * ((n - 1) / n) + old_var * ((1.0 - self.momentum) / n)
+        return y
+
+    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        dims = (0, 2, 3)
+        head = _AllReduceSum.apply(torch.cat([x.sum(dims), x.new_full((1,), x.numel() // c)]))
+        n = head[c]
+        mean = head[:c] / n
+        xc = x - mean[None, :, None, None]
+        var = _AllReduceSum.apply((xc * xc).sum(dims)) / n
+        y = xc * torch.rsqrt(var + self.eps)[None, :, None, None]
+        if self.affine:
+            y = y * self.weight[None, :, None, None] + self.bias[None, :, None, None]
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
         return y
 
 

@@ -1,10 +1,10 @@
-"""Zero training loop on one device (port of ``minizero_tpu/zero/loop.py``,
-its single-process, device-env path).
+"""Zero training loop (port of ``minizero_tpu/zero/loop.py``).
 
 The reference's distributed triangle — TCP ``ZeroServer`` state machine,
 self-play workers, optimization worker, NFS
 (``minizero/zero/zero_server.cpp:159-323``) — is one in-process loop on one
-card, with the same iteration semantics:
+card, or one such loop a card under ``torch.distributed`` (``mesh``), with
+the same iteration semantics:
 
     for iteration: self-play 2000 games -> train 500 steps -> checkpoint
 
@@ -25,9 +25,21 @@ chunks long episodes into records that store one frame a position, the
 frame window (``learner/frame_window.py``) keeps the replay window's frames
 on the device, and each SGD step's stacks are assembled there.
 
-Not ported (ROADMAP.md): the mesh and multi-host paths and their watchdog
-(A11), and the analysis plots the JAX loop redraws every 5 iterations
-(A12).
+With a ``mesh`` (``parallel/mesh.py``: this process's rank, the number of
+ranks and its card) the loop is one rank of a data-parallel run, as the JAX
+loop's mesh and multi-host paths are: each rank plays ``ceil(games /
+world)`` games on its card (``parallel/distributed.ShardedSelfPlay``) into
+its own record shard (``sgf/{it}.sgf`` on rank 0, ``sgf/{it}.p{rank}.sgf``
+on the others; the logs likewise), the self-play statistics are gathered
+over the ranks, each rank samples ``batch // world`` rows from its own
+replay buffer for the data-parallel train step, rank 0 writes the
+checkpoint, and every collective outside a move runs under the collective
+watchdog (``zero_collective_timeout``). Atari under a mesh is refused, as
+in JAX.
+
+Rank 0 redraws the analysis plots (``tools/analysis.py``) every 5
+iterations and at the last one; where that fails (no matplotlib) it logs
+one ``[Analysis] skipped`` line and training goes on.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from minizero_tpu_torch import resolve_device, upload
 from minizero_tpu_torch.config import Config
@@ -51,11 +64,16 @@ from minizero_tpu_torch.learner.frame_window import FrameWindow, rows_needed
 from minizero_tpu_torch.learner.replay import GameRecord, ReplayBuffer
 from minizero_tpu_torch.learner.train import init_train_state, make_train_step
 from minizero_tpu_torch.models.factory import create_network, init_network
+from minizero_tpu_torch.parallel.distributed import (
+    ShardedSelfPlay, all_gather_rows, global_batch_from_local, make_sharded_train_chunk)
+from minizero_tpu_torch.parallel.mesh import replicated
+from minizero_tpu_torch.parallel.watchdog import collective_watchdog
 from minizero_tpu_torch.selfplay.collector import TrajectoryCollector
 from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
 from minizero_tpu_torch.selfplay.host_engine import (
     AtariTrajectoryCollector, HostSelfPlayEngine, atari_record_line)
 from minizero_tpu_torch.selfplay.record import game_record_from_string, serialize_game
+from minizero_tpu_torch.tools.analysis import analysis
 from minizero_tpu_torch.tools.obs import unpack_observations
 from minizero_tpu_torch.utils.bitpack import pack_planes, packed_channels
 
@@ -97,16 +115,29 @@ class ZeroLoop:
     card it raises) and the CPU only when asked for. Self-play evaluates
     the net in bf16 on the card (the JAX engine's default) and in float32
     on the CPU. For Atari, ``ale_factory(seed)`` builds the episodes' ALE
-    handles (default: the real ALE of ``ale_py``)."""
+    handles (default: the real ALE of ``ale_py``). With ``mesh``
+    (``parallel/mesh.make_mesh`` in a joined process group) the loop is
+    that rank of a data-parallel run, on ``mesh.device``."""
 
-    def __init__(self, cfg: Config, run_dir: str, device=None, ale_factory=None):
-        self.device = resolve_device(device)
+    def __init__(self, cfg: Config, run_dir: str, device=None, ale_factory=None, mesh=None):
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.pid = mesh.rank if mesh is not None else 0
+        self.num_procs = mesh.world_size if mesh is not None else 1
+        self.is_main = self.pid == 0
         self.cfg = cfg
         self.run_dir = run_dir
         os.makedirs(os.path.join(run_dir, "model"), exist_ok=True)
         os.makedirs(os.path.join(run_dir, "sgf"), exist_ok=True)
+        # rank 0 keeps the unsuffixed file names; rank r appends .p{r}
+        self.shard = "" if self.is_main else f".p{self.pid}"
+        self._log_file = open(os.path.join(run_dir, f"Training{self.shard}.log"), "a")
+        self._op_log = open(os.path.join(run_dir, f"op{self.shard}.log"), "a")
         self.is_host_env = cfg.env_name == "atari"
         self.vec_env = self.frame_window = None
+        if self.is_host_env and mesh is not None:
+            raise NotImplementedError("mesh-sharded self-play is device-env only; "
+                                      "run atari workers one process per host")
         if self.is_host_env:
             # the ALE on the host, the search on the device: the reference's
             # Atari actor consults the env at the root only
@@ -133,6 +164,10 @@ class ZeroLoop:
         # the network lives on the device before the optimizer takes its
         # parameters; the engine gets this same module
         self.network = init_network(create_network(cfg, self.env.spec), seed=seed).to(self.device)
+        if mesh is not None:
+            # every rank starts from rank 0's weights (an auto seed differs)
+            with self._watchdog("replicate_weights"):
+                replicated(mesh, self.network)
         self.state = init_train_state(cfg, self.network)
         if self.is_host_env:
             self.engine = HostSelfPlayEngine(
@@ -147,15 +182,22 @@ class ZeroLoop:
             self.engine = SelfPlayEngine(
                 self.env, cfg, self.network, device=self.device, seed=seed,
                 use_bf16=self.device.type == "cuda")
+        self.sharded = None
+        if mesh is not None:
+            # this rank's games and rows; the gradient averaged over ranks,
+            # K steps a synchronise
+            self.sharded = ShardedSelfPlay(self.engine, mesh, seed)
+            self._train_chunk = make_sharded_train_chunk(
+                cfg, self.env, self.network, mesh, cfg.zero_collective_timeout, self.log)
+        else:
+            self._train_step = make_train_step(cfg, self.env, self.network)
         self.buffer = ReplayBuffer(cfg, self.env.spec)
-        self._train_step = make_train_step(cfg, self.env, self.network)
-        # the train step's rotation draws; the replay's draws stay on numpy
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + 2)
+        # the train step's rotation draws (each rank's for its own rows); the
+        # replay's draws stay on numpy
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + 2 + self.pid)
         self.np_rng = np.random.RandomState(cfg.program_seed + 1)
         self.is_muzero = cfg.nn_type_name.lower() != "alphazero"
         self.last_selfplay_timing: Dict[str, float] = {}
-        self._log_file = open(os.path.join(run_dir, "Training.log"), "a")
-        self._op_log = open(os.path.join(run_dir, "op.log"), "a")
 
     def close(self) -> None:
         self._log_file.close()
@@ -172,6 +214,10 @@ class ZeroLoop:
         self._op_log.write(f"[{time.strftime('%Y-%m-%d %H:%M:%S')}] {message}\n")
         self._op_log.flush()
 
+    def _watchdog(self, name: str):
+        """The collective watchdog around a collective of the mesh path."""
+        return collective_watchdog(name, self.cfg.zero_collective_timeout, self.log)
+
     # -------------------------------------------------------------- selfplay
     def self_play_iteration(self, iteration: int) -> Dict[str, float]:
         if self.is_host_env:
@@ -179,12 +225,16 @@ class ZeroLoop:
         cfg = self.cfg
         spec = self.env.spec
         temperature = temperature_for_iteration(cfg, iteration)
-        collector = TrajectoryCollector(cfg, spec, cfg.zero_num_parallel_games,
-                                        seed=cfg.program_seed + iteration)
-        states = self.engine.init_batch(cfg.zero_num_parallel_games)
+        sp = self.sharded or self.engine
+        batch = (sp.local_batch(cfg.zero_num_parallel_games) if self.sharded
+                 else cfg.zero_num_parallel_games)
+        collector = TrajectoryCollector(cfg, spec, batch,
+                                        seed=cfg.program_seed + iteration * self.num_procs + self.pid)
+        states = sp.init_batch(cfg.zero_num_parallel_games)
         num_games, lengths, returns = 0, [], []
-        games_target = cfg.zero_num_games_per_iteration
-        record_path = os.path.join(self.run_dir, "sgf", f"{iteration}.sgf")
+        # each rank plays its share of the iteration's games into its shard
+        games_target = -(-cfg.zero_num_games_per_iteration // self.num_procs)
+        record_path = os.path.join(self.run_dir, "sgf", f"{iteration}{self.shard}.sgf")
         model_file = f"weight_iter_{self.state.step}"
         t0 = time.time()
         # chunked collection: move_scan advances every game M moves (with
@@ -200,7 +250,7 @@ class ZeroLoop:
         with open(record_path, "a") as record_file:
             while num_games < games_target:
                 tp = time.time()
-                stacked, states, enable, msr = self.engine.move_scan(
+                stacked, states, enable, msr = sp.move_scan(
                     states, temperature, scan_moves, enable, msr)
                 t_dispatch += time.time() - tp
                 chunks += 1
@@ -236,6 +286,52 @@ class ZeroLoop:
                                      "dispatch_s": t_dispatch, "collect_s": t_collect,
                                      "records_s": t_host}
         return self._selfplay_stats(iteration, num_games, lengths, returns, time.time() - t0)
+
+    def _gathered_selfplay_stats(self, iteration, num_games, lengths, returns,
+                                 dt) -> Dict[str, float]:
+        """The mesh path's statistics over every rank's games: the ranks'
+        moments (count, sum, sum of squares, min, max) gathered under the
+        watchdog, so every rank logs the global lines (the reference server
+        aggregates its workers' lines, zero_server.cpp:240-263)."""
+        def mom(x):
+            x = np.asarray(x, np.float64)
+            if x.size == 0:
+                return [0.0, 0.0, np.inf, -np.inf]
+            return [float(x.sum()), float((x * x).sum()), float(x.min()), float(x.max())]
+
+        local = np.array([float(num_games)] + mom(lengths) + mom(returns) + [dt])
+        with self._watchdog("selfplay_stats_allgather"):
+            g = all_gather_rows(self.mesh, local)
+        n = g[:, 0].sum()
+
+        def comb(col):
+            s, sq = g[:, col].sum(), g[:, col + 1].sum()
+            avg = s / max(n, 1.0)
+            std = float(np.sqrt(max(sq / max(n, 1.0) - avg * avg, 0.0)))
+            return avg, std, float(g[:, col + 2].min()), float(g[:, col + 3].max())
+
+        l_avg, l_std, l_min, l_max = comb(1)
+        r_avg, r_std, r_min, r_max = comb(5)
+        dt = float(g[:, 9].max())
+        stats = {
+            "games": int(n), "time_s": dt,
+            "games_per_sec": n / max(dt, 1e-9),
+            "length_avg": l_avg, "length_std": l_std,
+            "return_avg": r_avg, "return_std": r_std,
+        }
+        self.log(
+            f"[Iteration] {iteration}: self-play {int(n)} games in {dt:.1f}s "
+            f"({stats['games_per_sec']:.2f} games/s, {self.num_procs} hosts)"
+        )
+        self.log(
+            f"[SelfPlay Game Lengths] min: {l_min:g}, max: {l_max:g}, "
+            f"avg: {l_avg:.2f}, std: {l_std:.2f}"
+        )
+        self.log(
+            f"[SelfPlay Game Returns] min: {r_min:g}, max: {r_max:g}, "
+            f"avg: {r_avg:.2f}, std: {r_std:.2f}"
+        )
+        return stats
 
     def _host_self_play_iteration(self, iteration: int) -> Dict[str, float]:
         """Self-play over the host vec env (Atari): the search on the
@@ -285,6 +381,8 @@ class ZeroLoop:
         return self._selfplay_stats(iteration, num_games, lengths, returns, time.time() - t0)
 
     def _selfplay_stats(self, iteration, num_games, lengths, returns, dt) -> Dict[str, float]:
+        if self.mesh is not None:
+            return self._gathered_selfplay_stats(iteration, num_games, lengths, returns, dt)
         stats = {
             "games": num_games,
             "time_s": dt,
@@ -329,6 +427,61 @@ class ZeroLoop:
         cfg = self.cfg
         self.buffer.per_beta = per_beta_for_iteration(cfg, iteration)
         t0 = time.time()
+        if self.mesh is not None:
+            self._optimize_sharded()
+        else:
+            self._optimize_steps()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.time() - t0
+        self.log(f"[Optimization] iteration {iteration}: {cfg.learner_training_step} steps in {dt:.1f}s")
+        self.log(f"Optimization_Done {self.state.step}")
+        return {"time_s": dt}
+
+    def _log_metrics(self, step: int, sums: Dict[str, float], n: int) -> None:
+        """One op.log line of the metrics averaged over ``n`` steps."""
+        self.op_log(
+            f"nn step {step}, lr: {self.cfg.learner_learning_rate}. "
+            + " ".join(f"{k}: {v / n:.5f}" for k, v in sorted(sums.items()))
+        )
+
+    def _optimize_sharded(self) -> None:
+        """The mesh path: chunks of K data-parallel steps (K the display
+        period, at most 100), each rank sampling ``batch // world`` rows of
+        every step from its own buffer up front; the chunk synchronises once
+        under the watchdog. With PER each rank refreshes its own rows after
+        the chunk, so sampling lags the refresh by fewer than K steps (the
+        JAX loop's chunked optimizer)."""
+        cfg = self.cfg
+        local_bs = cfg.learner_batch_size // self.num_procs
+        chunk = max(1, min(cfg.learner_training_display_step, 100))
+        base_step = self.state.step
+        done = shown = 0
+        sums: Dict[str, float] = {}
+        while done < cfg.learner_training_step:
+            k_steps = min(chunk, cfg.learner_training_step - done)
+            batches, indices = [], []
+            for _ in range(k_steps):
+                b = (self.buffer.sample_muzero(local_bs, self.np_rng) if self.is_muzero
+                     else self.buffer.sample_alphazero(local_bs, self.np_rng))
+                indices.append(b.pop("sampled_index"))
+                batches.append(global_batch_from_local(self.mesh, b))
+            metrics = self._train_chunk(self.state, batches, self.generator)
+            done += k_steps
+            new_values = metrics.pop("_new_values", None)
+            if new_values is not None:
+                for idx, nv in zip(indices, new_values.cpu().numpy()):
+                    self.buffer.refresh_priorities(idx, nv)
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0.0) + float(v.sum())
+            if done - shown >= cfg.learner_training_display_step:
+                self._log_metrics(base_step + done, sums, done - shown)
+                sums, shown = {}, done
+
+    def _optimize_steps(self) -> None:
+        """One device: the steps one after another, each batch sampled on the
+        host while the card runs the previous step."""
+        cfg = self.cfg
         bs = cfg.learner_batch_size
         base_step = self.state.step
         totals: Dict[str, torch.Tensor] = {}
@@ -353,37 +506,33 @@ class ZeroLoop:
                 totals[k] = totals[k] + v if k in totals else v
             if done - shown >= cfg.learner_training_display_step:
                 keys = sorted(totals)
-                vals = torch.stack([totals[k] for k in keys]).cpu().numpy() / (done - shown)
-                self.op_log(
-                    f"nn step {base_step + done}, "
-                    f"lr: {cfg.learner_learning_rate}. "
-                    + " ".join(f"{k}: {v:.5f}" for k, v in zip(keys, vals))
-                )
+                vals = torch.stack([totals[k] for k in keys]).cpu().numpy()
+                self._log_metrics(base_step + done, dict(zip(keys, vals)), done - shown)
                 totals = {}
                 shown = done
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        dt = time.time() - t0
-        self.log(f"[Optimization] iteration {iteration}: {cfg.learner_training_step} steps in {dt:.1f}s")
-        self.log(f"Optimization_Done {self.state.step}")
-        return {"time_s": dt}
 
     # ------------------------------------------------------------ checkpoint
     def save_checkpoint(self) -> str:
         """Model and optimizer state, step and config in one ``torch.save``,
         written to a temporary name and renamed: a crash mid-write never
-        leaves a truncated newest checkpoint."""
+        leaves a truncated newest checkpoint. Under a mesh the state is the
+        same on every rank: rank 0 alone writes it, then every rank waits at
+        a barrier (under the watchdog)."""
         step = self.state.step
         path = os.path.join(self.run_dir, "model", f"weight_iter_{step}.ckpt")
-        payload = {
-            "training_step": step,
-            "model": self.network.state_dict(),
-            "optimizer": self.state.optimizer.state_dict(),
-            "config": self.cfg.to_string(),
-        }
-        tmp = path + ".tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
+        if self.is_main:
+            payload = {
+                "training_step": step,
+                "model": self.network.state_dict(),
+                "optimizer": self.state.optimizer.state_dict(),
+                "config": self.cfg.to_string(),
+            }
+            tmp = path + ".tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+        if self.mesh is not None:
+            with self._watchdog(f"ckpt_barrier_{step}"):
+                dist.barrier()
         return path
 
     def load_checkpoint(self, path: str) -> None:
@@ -450,7 +599,7 @@ class ZeroLoop:
         lo = max(1, start_iter - self.cfg.zero_replay_buffer + 1)
         records: List[GameRecord] = []
         for it in range(lo, start_iter + 1):
-            path = os.path.join(sgf_dir, f"{it}.sgf")
+            path = os.path.join(sgf_dir, f"{it}{self.shard}.sgf")  # this rank's shard
             if os.path.exists(path):
                 opener = open(path)
             elif os.path.exists(path + ".gz"):
@@ -499,13 +648,13 @@ class ZeroLoop:
         """Iterations ``zero_start_iteration + 1 .. zero_end_iteration``, each
         self-play, optimize and a checkpoint, after the bootstrap checkpoint
         weight_iter_{step} (zero-server.sh:113-115). Each iteration appends
-        one row to ``perf.jsonl``: wall-clock stamps (``time.time()``), the
-        phase seconds, and this process's run token, so rows of resumed runs
-        are told apart."""
+        one row to ``perf.jsonl`` (``perf.p{rank}.jsonl`` on rank r > 0):
+        wall-clock stamps (``time.time()``), the phase seconds, and this
+        process's run token, so rows of resumed runs are told apart."""
         cfg = self.cfg
         self.save_checkpoint()
         run_token = uuid.uuid4().hex[:12]
-        with open(os.path.join(self.run_dir, "perf.jsonl"), "a") as perf_log:
+        with open(os.path.join(self.run_dir, f"perf{self.shard}.jsonl"), "a") as perf_log:
             for iteration in range(cfg.zero_start_iteration + 1, cfg.zero_end_iteration + 1):
                 w0, p0 = time.time(), time.perf_counter()
                 self.self_play_iteration(iteration)
@@ -518,3 +667,14 @@ class ZeroLoop:
                     "selfplay_s": p1 - p0, "optimize_s": p2 - p1}) + "\n")
                 perf_log.flush()
                 self.save_checkpoint()
+                if self.is_main and (iteration % 5 == 0 or iteration == cfg.zero_end_iteration):
+                    self._plot()
+
+    def _plot(self) -> None:
+        """Redraw the analysis plots; plotting never stops training (the
+        reference's analysis is a manual tool; redrawing every iteration
+        would re-parse the growing logs)."""
+        try:
+            analysis(self.run_dir)
+        except Exception as e:  # noqa: BLE001 - no matplotlib, a bad log line: go on
+            self.log(f"[Analysis] skipped: {e}")

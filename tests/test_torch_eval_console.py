@@ -315,16 +315,30 @@ def test_cli_modes_devices_and_unported_modes(tmp_path, capsys):
 
     lines = open(out).read().splitlines()
     assert len(lines) == 5 and all(parse_game(x, 9)[1] for x in lines)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A11"):
-        main(["-mode", "zero", "-multi_device", "-conf_str", conf, "-platform", "cpu"])
+    # -multi_device without a launcher and without cards is the plain loop
+    run_dir = str(tmp_path / "run")
+    assert main(["-mode", "zero", "-multi_device", "-run_dir", run_dir, "-platform", "cpu",
+                 "-conf_str", conf + ":zero_num_games_per_iteration=4:zero_num_parallel_games=4"
+                 ":learner_batch_size=8:learner_training_step=2:zero_end_iteration=1"]) == 0
+    assert os.path.exists(os.path.join(run_dir, "model", "weight_iter_2.ckpt"))
+    assert "games/s)" in open(os.path.join(run_dir, "Training.log")).read()
     try:  # Atari sp runs over the host env; without ale_py its real ALE raises
         import ale_py  # noqa: F401
     except ImportError:
         with pytest.raises(ImportError, match="ale_py"):
             main(["-mode", "sp", "-conf_str", "env_name=atari", "-platform", "cpu"])
-    for mode in ("remove_obs", "recover_obs"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, A12"):
-            main(["-mode", mode, "-platform", "cpu"])
+    # the OBS tools: remove_obs strips the tags; recover_obs replays Atari
+    # records, whose real ALE needs ale_py
+    records = str(tmp_path / "atari.sgf")
+    with open(records, "w") as f:
+        f.write("(;GM[atari_pong]SD[7];B[3]P[3:1]V[0]R[1]OBS[00ff])\n")
+    assert main(["-mode", "remove_obs", "-input", records, "-platform", "cpu"]) == 0
+    assert open(records + ".noobs").read() == "(;GM[atari_pong]SD[7];B[3]P[3:1]V[0]R[1])\n"
+    try:
+        import ale_py  # noqa: F401
+    except ImportError:
+        with pytest.raises(ImportError, match="ale_py"):
+            main(["-mode", "recover_obs", "-input", records + ".noobs", "-platform", "cpu"])
     with pytest.raises(ValueError, match="-platform tpu"):
         main(["-mode", "env_test", "-platform", "tpu"])
 

@@ -1228,12 +1228,14 @@ def test_eval_match_on_card_matches_cpu(monkeypatch):
 
 
 def test_port_and_chip_smoke_import_without_jax():
-    """``minizero_tpu_torch`` (every module, the MuZero ones by name) and
-    ``chip_smoke`` import with jax, flax, msgpack and the JAX package
-    blocked."""
+    """``minizero_tpu_torch`` (every module, the MuZero ones and the tools by
+    name) and ``chip_smoke`` import with jax, flax, msgpack, the JAX
+    package, matplotlib and PIL blocked (the card's machine has none of
+    them: the tools import their drawing libraries where they draw)."""
     code = "\n".join([
         "import importlib, pkgutil, sys",
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'minizero_tpu', 'tests'):",
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'minizero_tpu', 'tests',",
+        "             'matplotlib', 'PIL'):",
         "    sys.modules[name] = None",
         "import minizero_tpu_torch",
         "names = [m.name for m in pkgutil.walk_packages(minizero_tpu_torch.__path__, 'minizero_tpu_torch.')]",
@@ -1249,6 +1251,11 @@ def test_port_and_chip_smoke_import_without_jax():
         "        'minizero_tpu_torch.tools.obs', 'minizero_tpu_torch.envs.linesofaction',",
         "        'minizero_tpu_torch.envs.surakarta', 'minizero_tpu_torch.envs.santorini',",
         "        'minizero_tpu_torch.envs.amazons', 'minizero_tpu_torch.envs.cycle',",
+        "        'minizero_tpu_torch.tools.analysis', 'minizero_tpu_torch.tools.to_sgf',",
+        "        'minizero_tpu_torch.tools.plot_board', 'minizero_tpu_torch.tools.to_video',",
+        "        'minizero_tpu_torch.tools.dependency_graph', 'minizero_tpu_torch.tools.profile',",
+        "        'minizero_tpu_torch.tools.trace_report', 'minizero_tpu_torch.parallel.mesh',",
+        "        'minizero_tpu_torch.parallel.distributed', 'minizero_tpu_torch.parallel.watchdog',",
         "        'minizero_tpu_torch.__main__'} <= set(names), names",
         "import chip_smoke",
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'minizero_tpu') and sys.modules[k] is not None",
@@ -1288,3 +1295,85 @@ def test_entry_points_raise_without_a_card():
             ConsoleActor(cfg, network=net)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             play_match(cfg, net, net, num_games=2)
+
+
+@pytest.mark.gpu
+def test_profile_and_trace_report_count_b1_on_card(tmp_path):
+    """``tools/profile.py`` on the card (Go 9x9 gaz n=16, 1 x 32, B=64, 2
+    steady moves, 2 SGD steps) with a trace: ``tools/trace_report.py``
+    finds B1's kernel exactly 17 times a steady move, by name and under
+    its own name by source (it is launched through ctypes, outside any
+    op); the launch counter saw the first move's 17 too."""
+    _need_card()
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
+    from minizero_tpu_torch.tools import profile, trace_report
+
+    over = dict(algorithm_preset("gaz"))
+    over.update(nn_num_hidden_channels=32, nn_num_value_hidden_channels=32, learner_batch_size=64)
+    cfg = default_config("go", **over)
+    before = fused_tree_step.launches
+    rows = profile.profile_selfplay(cfg, moves=2, batch=64, trace_dir=str(tmp_path), train_steps=2)
+    assert fused_tree_step.launches - before == 17 * 3
+    assert [r["phase"] for r in rows] == ["selfplay_compile", "selfplay_steady", "train_compile",
+                                          "train_steady"]
+    trace = str(tmp_path / profile.SELFPLAY_TRACE)
+    for by in ("op", "source"):
+        found, total_us = trace_report.aggregate(trace, by=by)
+        b1 = [(k, c) for k, _, c in found if "tree_step_kernel<" in k]
+        assert sum(c for _, c in b1) == 17 * 2, (by, b1)
+        assert total_us > 0
+    assert trace_report.main(["-trace_dir", str(tmp_path)]) == 0
+
+
+@pytest.mark.gpu
+def test_world_one_nccl_train_step_matches_plain_on_card():
+    """The data-parallel train step in an NCCL group of one rank equals the
+    plain step on the card (Go 9x9 gaz, 1 x 32, batch 64, TF32 off):
+    metrics and parameters within 1e-5."""
+    _need_card()
+    import copy
+    import socket
+
+    import torch.distributed as dist
+
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.learner.train import init_train_state, make_train_step
+    from minizero_tpu_torch.models.factory import create_network, init_network
+    from minizero_tpu_torch.parallel.distributed import make_sharded_train_step
+    from minizero_tpu_torch.parallel.mesh import make_mesh
+    from minizero_tpu_torch.utils.bitpack import pack_planes
+
+    over = dict(algorithm_preset("gaz"))
+    over.update(nn_num_hidden_channels=32, nn_num_value_hidden_channels=32)
+    cfg = default_config("go", **over)
+    env = make_env(cfg)
+    plain_net = init_network(create_network(cfg, env.spec), seed=3).cuda()
+    dp_net = copy.deepcopy(plain_net)
+    rng = np.random.default_rng(5)
+    b = 64
+    p = rng.random((b, env.spec.action_size))
+    batch = {"features": pack_planes(torch.from_numpy(rng.random((b, 9, 9, 18)) > 0.5)).numpy(),
+             "loss_scale": np.ones(b, np.float32), "value": rng.choice([-1.0, 1.0], b).astype(np.float32),
+             "policy": (p / p.sum(-1, keepdims=True)).astype(np.float16)}
+    rots = torch.from_numpy(rng.integers(0, 8, b)).cuda()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device="cuda")
+        m_plain = make_train_step(cfg, env, plain_net)(init_train_state(cfg, plain_net), batch,
+                                                       rotations=rots)
+        m_dp = make_sharded_train_step(cfg, env, dp_net, mesh)(init_train_state(cfg, dp_net),
+                                                                batch, rotations=rots)
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.allow_tf32 = tf32
+    for key in m_plain:
+        torch.testing.assert_close(m_dp[key], m_plain[key], rtol=0, atol=1e-5, msg=key)
+    for key, want in plain_net.state_dict().items():
+        torch.testing.assert_close(dp_net.state_dict()[key], want, rtol=0, atol=1e-5, msg=key)

@@ -195,8 +195,11 @@ def test_cli_zero_mode_runs_and_continues(tmp_path, capsys):
     gen = str(tmp_path / "gen.cfg")
     assert main(["-gen", gen, "-conf_str", conf]) == 0
     assert "env_name=tictactoe" in open(gen).read()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A12"):
-        main(["-mode", "remove_obs", "-conf_str", conf])
+    # the loop's records carry no OBS tag: remove_obs copies them unchanged
+    sgf = os.path.join(run_dir, "sgf", "1.sgf")
+    assert main(["-mode", "remove_obs", "-input", sgf, "-output", sgf + ".noobs",
+                 "-conf_str", conf]) == 0
+    assert open(sgf + ".noobs").read() == open(sgf).read()
 
 
 def test_the_card_is_the_default(tmp_path):
