@@ -1493,12 +1493,14 @@ def wide_batch(a: int, n: int) -> int:
     return BATCH if BATCH * n * a * 13 <= WIDE_TREE_BYTES else WIDE_SMALL_BATCH
 
 
-def wide_b1_case(a: int, n: int, regime: str, seed: int, zero_counts, counts) -> dict:
+def wide_b1_case(a: int, n: int, regime: str, seed: int, zero_counts, counts,
+                 keep: bool = False) -> dict:
     """A search of ``n - 1`` simulations at ``a`` actions on random leaves,
     every step on the tree step's wide kernel (B1), the checked steps
     beside the plain version: the board regime with the Gumbel root (m=16),
     or the reward regime with PUCT, leaf rewards, discount 0.997 and value
-    rescale. Returns the case's numbers."""
+    rescale. Returns the case's numbers (and with ``keep`` the timed step's
+    inputs under "kept")."""
     from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
     from minizero_tpu_torch.search import gumbel as gz
     from minizero_tpu_torch.search import mcts
@@ -1549,14 +1551,15 @@ def wide_b1_case(a: int, n: int, regime: str, seed: int, zero_counts, counts) ->
     return {"name": f"tree_step_wide A={a} N={n} {regime}", "kernel": key, "batch": b,
             "launches": n, "checked": check.calls, "err": check.max_abs_err, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by, "bytes": byts,
-            "depth": depth}
+            "depth": depth, **({"kept": check.kept} if keep else {})}
 
 
-def wide_b2_case(a: int, n: int, seed: int, zero_counts, counts) -> dict:
+def wide_b2_case(a: int, n: int, seed: int, zero_counts, counts, keep: bool = False) -> dict:
     """A staged v2 search (capacity 65 -> 129 -> 201, or one stage below 65)
     of ``n - 1`` simulations at ``a`` actions on random leaves, a third of
     them terminal, every step on B2's wide kernel, the checked steps beside
-    the plain version."""
+    the plain version (with ``keep``, the timed step's inputs under
+    "kept")."""
     from minizero_tpu_torch.ops import tree_kernel_v2 as tv2
     from minizero_tpu_torch.search import mcts
 
@@ -1611,7 +1614,7 @@ def wide_b2_case(a: int, n: int, seed: int, zero_counts, counts) -> dict:
     return {"name": f"tree_step_v2_wide A={a} cap={n}", "kernel": "tree_step_v2", "batch": b,
             "launches": n, "checked": check.calls, "err": check.max_abs_err, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by, "bytes": byts,
-            "depth": depth}
+            "depth": depth, **({"kept": kept} if keep else {})}
 
 
 def family_path(env_name: str, algo: str, over: dict, moves: int, seed: int, zero_counts, counts,
@@ -2651,7 +2654,9 @@ def main() -> None:
         log(f"phase 2 build: {res.name}.cu in {res.seconds:.2f} s (ptxas: {usage or 'n/a'})")
     # registers and shared memory per block (cudaFuncGetAttributes; the
     # dynamic size is what a launch at these shapes asks for): the tree
-    # steps run 128-thread blocks, B3 one warp per game
+    # steps' register kernels run 128-thread blocks of four games, their
+    # wide kernels (A > 384) one game a block of ceil(A / 384) warps (2 to
+    # 8), B3 one warp per game
     def attrs(d):
         return (f"{d['registers']} registers, {d['static_smem']} bytes static + "
                 f"{d['dynamic_smem']} bytes dynamic shared memory per block")
@@ -2662,8 +2667,9 @@ def main() -> None:
     for what, name, shape in (("tree_step (gaz/gmz: A=82, N=17; 128 threads)", "tree_step", (82, 17)),
                               ("tree_step (Atari: A=18, N=51; 128 threads)", "tree_step", (18, 51)),
                               *((f"tree_step, wide kernel (A={a}, N={n})", "tree_step", (a, n))
-                                for a, n in ((400, 17), (3040, 17), (3040, 201))),
-                              ("tree_step_v2, wide kernel (A=400, cap 51)", "tree_step_v2", (400, 51)),
+                                for a, n in ((400, 17), (3040, 17), (3040, 201), (3040, 801))),
+                              *((f"tree_step_v2, wide kernel (A={a}, cap {c})", "tree_step_v2", (a, c))
+                                for a, c in ((400, 51), (3040, 201))),
                               *((f"tree_step_v2 (A=82, cap {c}; 128 threads)", "tree_step_v2", (82, c))
                                 for c in (65, 129, AZ_SIMS + 1)),
                               *((f"gather_rows, {path} path ({b3_games} games, {32 * b3_games} "

@@ -72,17 +72,52 @@
 // Above 384 actions (12 slots; clobber 400, amazons 3040) a row no longer
 // fits a lane's registers, and kernel_for hands out the wide kernel
 // (tree_step_v2_wide_kernel), whose contract and order of operations are the
-// register kernel's. Its rows stay in device memory: the expansion writes
-// them and the root's edge there, and a walk level reads its cix row, player
-// lane and the prior of its open lanes in one pass that strides the lanes
-// over a = lane + 32 k, as the register slots do; the best child's rows are
-// prefetched into L2 before the init-Q reduction instead of loaded into
-// registers. Both kernels call the same helpers for every stage that does
-// not touch a row (the node's expansion, backup, PUCT factors, a level's
-// candidates and choice, the selection). Its shared memory is the register
-// kernel's (it grows with the capacity only), four games a block; the
-// launcher refuses a capacity whose block exceeds the opt-in 227 KB (above
-// 2767) with kShapeTooLarge, which the wrapper raises as a ValueError.
+// register kernel's; both call the same helpers for every per-action stage
+// (the node's expansion, backup, PUCT factors, a level's candidates,
+// settling the selection), and only the reductions have block-wide
+// versions. Its design:
+//   - One block per game, W warps (wide_warps: ceil(A / 384), at least 2,
+//     at most 8; more warps a game measured slower on Clobber's deep walks),
+//     so that B = 1024 games fill the card; action a is handled by thread
+//     a % 32W, so a warp's lane holds a % 32 as in the register kernel.
+//   - A walked node's cix row (all L = A + 8 lanes, the player lane among
+//     them) and prior row are staged in shared memory by Hopper's bulk
+//     copies (cp.async.bulk global -> shared on an mbarrier, issued by
+//     thread 0), in one of two buffers. A row starts at node * L * 4 bytes,
+//     16-byte aligned only when A % 4 == 0: the copy takes the aligned
+//     window around the row and the row is read at its offset inside it.
+//     The root's rows are on their way at the start, and the expansion's
+//     edge into the root is patched into the staged row.
+//   - Before the backup, warp 0 notes for every node of the previous path
+//     (parent pointers in shared memory) its successor on that path. A level
+//     stages the successor of its node into the other buffer before its
+//     pass, so that the copy overlaps the pass and the reduction while the
+//     walk re-follows the previous path, as a deep walk mostly does; a walk
+//     that goes elsewhere waits out that copy and stages its node. A parity
+//     wait cannot tell a phase from the one two ahead, so every thread
+//     waits every phase, and a barrier separates the last wait on a buffer
+//     from its next copy.
+//   - One barrier a level: each warp reduces its lanes (the best child and
+//     its edge lane, the open lane of largest prior, the double sum of q and
+//     the count), lane 0 writes the warp's share, one __syncthreads, and
+//     every thread combines the W shares in order (the same order as the
+//     warp reductions, the sums in a fixed order), so that every thread
+//     holds the level's result and nobody reads the row after the barrier.
+//     The shares alternate between two sets of slots, so that a warp that
+//     runs ahead never overwrites a share that another is still reading.
+//   - The node statistics, the backup (warp 0) and the PUCT factors (each
+//     warp a slice of the nodes) are the register kernel's. Shared memory
+//     per block (WideLayout): two buffers of 2 * window(4L) bytes, where
+//     window(x) = 16 * ceil((x + 15) / 16), the node statistics 28 cap + cap
+//     bytes and 96 W bytes of slots: 8.3 KB at A = 400, cap 51. The
+//     launcher refuses a shape past the opt-in 227 KB (at A = 400 above
+//     capacity 7,780) with kShapeTooLarge, which the wrapper raises as a
+//     ValueError.
+//   - The expansion writes its rows with plain stores, in 16-byte vectors
+//     where A % 4 == 0; a walk may stage a row written in this step (the new
+//     leaf's, or its parent's edge), so the writers fence the generic proxy
+//     against the async one (fence.proxy.async.global) before the barrier
+//     that precedes every bulk copy of a walked row.
 //
 // Numerics. Built with --fmad=false and IEEE logf/sqrtf/division, so that
 // each multiply and add rounds as the plain PyTorch version's separate
@@ -535,20 +570,317 @@ tree_step_v2_kernel(const Args p) {
 
 // ---- the wide kernel: A > 384 ---------------------------------------------
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-tree_step_v2_wide_kernel(const Args p) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarpsPerBlock + warp;
-  if (b >= p.B) return;  // whole warp: b is uniform across its lanes
+constexpr size_t kMaxBlockSmem = 232448;  // Hopper's opt-in shared memory a block
+constexpr int kShapeTooLarge = -1;        // the block does not fit
+constexpr int kRegisterSlots = 12;        // the register kernel's largest K
+constexpr int kMaxWideWarps = 8;
+constexpr int kWideMinBlocks = 4;  // blocks an SM the registers must allow
+constexpr int kSlotBytes = 48;     // one warp's share of a block reduction
 
+// warps of the wide kernel's block (one game): ceil(A / 384), at least 2,
+// at most 8
+__host__ __device__ inline int wide_warps(int A) {
+  const int w = (A + 383) / 384;
+  return w < 2 ? 2 : w > kMaxWideWarps ? kMaxWideWarps : w;
+}
+
+__host__ __device__ inline size_t round16(size_t x) { return (x + 15) & ~(size_t)15; }
+
+// bytes of the 16-byte aligned window that a bulk copy of a row of `bytes`
+// fetches, wherever the row starts
+__host__ __device__ inline size_t row_window(size_t bytes) { return round16(bytes + 15); }
+
+// The wide kernel's shared memory, byte offsets from the block's base: two
+// mbarriers, two sets of W reduction slots, two row buffers (cix, prior),
+// then the node statistics (visits, mean, pedge, PUCT bias and sqrt(n)
+// [cap] floats, parent and the next node on the previous path [cap] ints;
+// path [cap] bytes).
+struct WideLayout {
+  size_t slots, ci[2], pr[2], nodes, path, total;
+  __host__ __device__ WideLayout(int cap, int L, int W) {
+    size_t o = 16;
+    slots = o;
+    o += (size_t)2 * W * kSlotBytes;
+    for (int k = 0; k < 2; ++k) {
+      ci[k] = o;
+      o += row_window((size_t)4 * L);
+      pr[k] = o;
+      o += row_window((size_t)4 * L);
+    }
+    nodes = o;
+    o += round16((size_t)28 * cap);
+    path = o;
+    o += round16(cap);
+    total = o;
+  }
+};
+
+// ---- Hopper bulk copies into shared memory ---------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// generic-proxy accesses of this thread before async-proxy ones (bulk copies)
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(ok) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+// Wait for the phase of parity `parity` of `bar` (every thread of the block
+// waits every phase, in order), then flip the parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned& parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+  parity ^= 1u;
+}
+
+// The 16-byte aligned window around the row [p, p + bytes).
+struct Window {
+  size_t lo;
+  unsigned len;
+  __device__ __forceinline__ Window(const void* p, size_t bytes) {
+    const size_t g = __cvta_generic_to_global(p);
+    lo = g & ~(size_t)15;
+    len = (unsigned)(((g + bytes + 15) & ~(size_t)15) - lo);
+  }
+};
+
+// the row [p, p + ...) inside the window staged at `buf`
+template <typename T>
+__device__ __forceinline__ T* staged(unsigned char* buf, const void* p) {
+  return reinterpret_cast<T*>(buf + (__cvta_generic_to_global(p) & 15));
+}
+
+__device__ __forceinline__ void bulk_copy(unsigned char* dst, const Window& w, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(w.lo), "r"(w.len), "r"(smem_u32(bar)) : "memory");
+}
+
+// Thread 0: stage node's cix and prior rows (L lanes each), completing one
+// phase of `bar`.
+__device__ __forceinline__ void stage_node(const Game& g, uint64_t* bar, unsigned char* ci,
+                                           unsigned char* pr, int node, int L) {
+  const size_t o = (size_t)node * L;
+  const Window wc(g.cix + o, (size_t)4 * L), wp(g.prior + o, (size_t)4 * L);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(wc.len + wp.len) : "memory");
+  bulk_copy(ci, wc, bar);
+  bulk_copy(pr, wp, bar);
+}
+
+// ---- block-wide reductions (the warp versions above, twice) ----------------
+
+// The block's threads and its two sets of reduction slots.
+struct Team {
+  int tid, T, W, warp, lane;
+  unsigned char* slots;
+  unsigned round;
+  // the slots of the next round: a warp can reach round r + 2 only after
+  // every warp has left round r + 1's barrier, so after it read round r's
+  __device__ __forceinline__ unsigned char* next_slots() {
+    return slots + (size_t)(round++ & 1u) * W * kSlotBytes;
+  }
+};
+
+// A walk level's candidates, reduced over the block, with the best child's
+// edge lane (read from the staged row before the barrier, so that no thread
+// reads the row after it).
+struct LevelSum {
+  Best child;
+  int child_c;
+  float open_pr;
+  int open_act;
+  double sum_q;
+  unsigned nv;
+};
+
+struct alignas(16) LevelSlot {
+  float score, tb;
+  int act, child_c;
+  float open_pr;
+  int open_act;
+  unsigned nv, pad0;
+  double sum_q;
+  double pad1;
+};
+static_assert(sizeof(LevelSlot) == kSlotBytes, "a level's slot");
+
+// One round: every thread gets the level's best child and its edge lane in
+// the staged row `crow`, its open lane of largest prior, and the children's
+// q summed (double) and counted.
+__device__ __forceinline__ LevelSum block_level(Team& t, const Level& lv, const int* crow) {
+  LevelSlot* s = reinterpret_cast<LevelSlot*>(t.next_slots());
+  // action a lies in lane a % 32 (32 divides the block's width)
+  const Best cb = warp_best(lv.child);
+  const unsigned kp = lv.open_act >= 0 ? fkey(lv.open_pr) : 0u;
+  const unsigned kpmax = __reduce_max_sync(kFull, kp);
+  const unsigned omin = __reduce_min_sync(
+      kFull, (lv.open_act >= 0 && kp == kpmax) ? (unsigned)lv.open_act : kNoAction);
+  const int oa = omin == kNoAction ? -1 : (int)omin;
+  const float op = __shfl_sync(kFull, lv.open_pr, omin & 31u);
+  const double sq = warp_sum(lv.sum_q);
+  const unsigned nv = __reduce_add_sync(kFull, (unsigned)lv.nv);
+  if (t.lane == 0)
+    s[t.warp] = LevelSlot{cb.score, cb.tb, cb.act, cb.act >= 0 ? crow[cb.act] : -2, op, oa, nv,
+                          0u, sq, 0.0};
+  __syncthreads();
+  // the W shares, combined in order by every thread alike: the same order
+  // as the warp reductions (better(); the largest prior key, then the
+  // lowest action), the sums in a fixed order
+  LevelSum r{Best{0.0f, 0.0f, -1}, -2, 0.0f, -1, 0.0, 0u};
+  for (int w = 0; w < t.W; ++w) {
+    const LevelSlot x = s[w];
+    const Best xb{x.score, x.tb, x.act};
+    if (better(xb, r.child)) {
+      r.child = xb;
+      r.child_c = x.child_c;
+    }
+    if (x.open_act >= 0) {
+      const unsigned kx = fkey(x.open_pr), kr = fkey(r.open_pr);
+      if (r.open_act < 0 || kx > kr || (kx == kr && x.open_act < r.open_act)) {
+        r.open_pr = x.open_pr;
+        r.open_act = x.open_act;
+      }
+    }
+    r.sum_q += x.sum_q;
+    r.nv += x.nv;
+  }
+  return r;
+}
+
+// Level::choose on the block's sums (c becomes -1 when the open lane wins)
+__device__ __forceinline__ Best choose_level(const LevelSum& r, bool init_q_average, float bias,
+                                             float sq, int& c) {
+  const float sqf = (float)r.sum_q;
+  const float nvf = (float)r.nv;
+  float init_q;
+  if (init_q_average) init_q = nvf > 0.0f ? sqf / fmaxf(nvf, 1.0f) : 1.0f;
+  else init_q = (sqf - 1.0f) / (nvf + 1.0f);
+  Best best = r.child;
+  if (r.open_act >= 0) {
+    const Best open{init_q + bias * r.open_pr * sq, r.open_pr, r.open_act};
+    if (better(open, best)) {
+      best = open;
+      c = -1;
+    }
+  }
+  return best;
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (__cvta_generic_to_global(p) & 15) == 0;
+}
+
+// Row s's action lanes: the prior of a live lane (legal, leaf not
+// terminal) and -1 (open) or -2, four actions a thread in flight; in 16-byte
+// vectors when A % 4 == 0 and the rows are aligned.
+__device__ __forceinline__ void expand_rows(const float* lpolicy, const uint8_t* llegal,
+                                            float* prow, int* crow, bool lt, int A, int tid,
+                                            int T) {
+  const bool vec = A % 4 == 0 && aligned16(lpolicy) && aligned16(prow) && aligned16(crow) &&
+                   (__cvta_generic_to_global(llegal) & 3) == 0;
+  if (vec) {
+    const int A4 = A / 4;
+    const float4* pol4 = reinterpret_cast<const float4*>(lpolicy);
+    const uint32_t* leg4 = reinterpret_cast<const uint32_t*>(llegal);
+    float4* pri4 = reinterpret_cast<float4*>(prow);
+    int4* cix4 = reinterpret_cast<int4*>(crow);
+    for (int q0 = tid; q0 < A4; q0 += 2 * T) {
+      float4 pol[2];
+      uint32_t lg[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int q = q0 + j * T;
+        pol[j] = q < A4 ? pol4[q] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        lg[j] = q < A4 ? leg4[q] : 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int q = q0 + j * T;
+        if (q < A4) {
+          const bool l0 = (lg[j] & 0xffu) && !lt, l1 = (lg[j] & 0xff00u) && !lt;
+          const bool l2 = (lg[j] & 0xff0000u) && !lt, l3 = (lg[j] & 0xff000000u) && !lt;
+          pri4[q] = make_float4(l0 ? pol[j].x : 0.0f, l1 ? pol[j].y : 0.0f, l2 ? pol[j].z : 0.0f,
+                                l3 ? pol[j].w : 0.0f);
+          cix4[q] = make_int4(l0 ? -1 : -2, l1 ? -1 : -2, l2 ? -1 : -2, l3 ? -1 : -2);
+        }
+      }
+    }
+    return;
+  }
+  for (int a0 = tid; a0 < A; a0 += 4 * T) {
+    float pol[4];
+    bool live[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int a = a0 + j * T;
+      live[j] = a < A && llegal[a] != 0 && !lt;
+      pol[j] = a < A ? lpolicy[a] : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int a = a0 + j * T;
+      if (a < A) {
+        prow[a] = live[j] ? pol[j] : 0.0f;
+        crow[a] = live[j] ? -1 : -2;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(32 * kMaxWideWarps, kWideMinBlocks)
+tree_step_v2_wide_kernel(const Args p) {
+  extern __shared__ __align__(16) unsigned char wsm[];
+  const int b = blockIdx.x;
   const int cap = p.cap, A = p.A, L = p.L, s = p.s;
+  Team team{(int)threadIdx.x, (int)blockDim.x, (int)(blockDim.x >> 5), (int)(threadIdx.x >> 5),
+            (int)(threadIdx.x & 31), nullptr, 0u};
+  const int tid = team.tid, T = team.T;
+  const WideLayout lay(cap, L, team.W);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(wsm);
+  team.slots = wsm + lay.slots;
+  unsigned char* const ci_buf[2] = {wsm + lay.ci[0], wsm + lay.ci[1]};
+  unsigned char* const pr_buf[2] = {wsm + lay.pr[0], wsm + lay.pr[1]};
+  float* nf = reinterpret_cast<float*>(wsm + lay.nodes);
+  int* up = reinterpret_cast<int*>(nf + 5 * cap);  // parent
+  int* nxt = up + cap;                             // the next node on the previous path
+  const Nodes sh{nf, nf + cap, nf + 2 * cap, nf + 3 * cap, nf + 4 * cap, wsm + lay.path};
+
   const bool en = p.phase > 0;
   const Game g = game_of(p, b);
-  const Nodes sh = nodes_of(smem, warp, cap);
-  const float* lpolicy = p.lpolicy + (size_t)b * A;
-  const uint8_t* llegal = p.llegal + (size_t)b * A;
+  // the root's rows: staged right away, unless this step rewrites them (a
+  // new leaf at row 0), then once the expansion has written them
+  const bool late_root = en && s == 0 && p.snew[b] != 0;
+  if (tid == 0) {
+    mbar_init(&bar[0]);
+    mbar_init(&bar[1]);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (tid == 0 && !late_root) stage_node(g, &bar[0], ci_buf[0], pr_buf[0], 0, L);
 
   // ---- 0. the selection, the leaf, then the node statistics into shared
   // memory -----------------------------------------------------------------
@@ -557,61 +889,127 @@ tree_step_v2_wide_kernel(const Args p) {
   const int sp = p.sparent[b], sa = p.saction[b], sleaf = p.sleaf[b], lturn = p.lturn[b];
   const float lvalue = p.lvalue[b], sprior = p.sprior[b];
   const float v_up = (en && !snew) ? g.value[max(sleaf, 0)] : lvalue;
-  load_nodes(g, sh, cap, en, lane);
-  __syncwarp();
+  const int* pvec = p.pvec + (size_t)b * cap;
+  for (int n = tid; n < cap; n += T) {
+    const float v = g.vis[n], m = g.mean[n], e = g.pedge[n];
+    const int pv = pvec[n];
+    const uint8_t on = en ? g.spath[n] : 0;
+    sh.vis[n] = v;
+    sh.mean[n] = m;
+    sh.pedge[n] = e;
+    up[n] = pv;
+    nxt[n] = -1;
+    sh.path[n] = on;
+  }
 
   // ---- 1. expand row s and write the parent's edge ------------------------
+  const int enc = lt ? -3 - s : s;
   if (en && snew) {
-    float* prow = g.prior + (size_t)s * L;
-    int* crow = g.cix + (size_t)s * L;
-    for (int a = lane; a < A; a += 32) {
-      const bool live = llegal[a] != 0 && !lt;
-      prow[a] = live ? lpolicy[a] : 0.0f;
-      crow[a] = live ? -1 : -2;
-    }
-    expand_node(p, g, sh, b, s, sp, sa, lturn, lt, lt ? -3 - s : s, lvalue, sprior, lane);
+    expand_rows(p.lpolicy + (size_t)b * A, p.llegal + (size_t)b * A, g.prior + (size_t)s * L,
+                g.cix + (size_t)s * L, lt, A, tid, T);
+    if (team.warp == 0) expand_node(p, g, sh, b, s, sp, sa, lturn, lt, enc, lvalue, sprior, team.lane);
+    if (tid == 0) up[s] = sp;
+    fence_async_global();  // a bulk copy below may stage what was written here
   }
-  __syncwarp();
+  __syncthreads();
 
-  // ---- 2. back up along the path plus the start node, and prefetch the
-  // rows of the path into L2 ---------------------------------------------------
-  if (en) backup(g, sh, cap, L, snew ? s : max(sleaf, 0), v_up, lane);
-  __syncwarp();
+  // ---- 2. warp 0: the next node of every node on the previous path (the
+  // walk's prediction), then the backup along the path plus the start node,
+  // and the rows of the path prefetched into L2; the root's rows land (the
+  // expansion's edge into the root patched) -------------------------------------
+  const int start = snew ? s : max(sleaf, 0);
+  if (team.warp == 0) {
+    if (tid == 0 && late_root) stage_node(g, &bar[0], ci_buf[0], pr_buf[0], 0, L);
+    if (en) {
+      for (int n = team.lane; n < cap; n += 32) {
+        const int u = up[n];
+        if ((sh.path[n] || n == start) && u >= 0 && u < cap) nxt[u] = n;
+      }
+      __syncwarp();
+      backup(g, sh, cap, L, start, v_up, team.lane);
+    }
+    if (tid == 0 && !late_root) {
+      unsigned ph = 0u;
+      mbar_wait(&bar[0], ph);
+      if (en && snew && sp == 0) staged<int>(ci_buf[0], g.cix)[sa] = enc;
+      fence_async_shared();  // buffer 0 is staged again later in the walk
+    }
+  }
+  __syncthreads();
 
-  // ---- 3. PUCT walk from the root -----------------------------------------
-  puct_factors(p, sh, cap, lane);
-  __syncwarp();
-  int cur = 0;
+  // ---- 3. PUCT walk from the root (the factors: each warp a slice) ----------
+  // A level stages the next node that the previous path predicts into the
+  // other buffer before its pass; when the walk goes elsewhere it waits out
+  // that copy and stages the chosen node. No thread reads a level's row
+  // after its round's barrier, so the next level may overwrite it.
+  {
+    const int run = (cap + team.W - 1) / team.W;
+    const int n0 = team.warp * run;
+    const int len = min(run, cap - n0);
+    if (len > 0) {
+      const Nodes part{sh.vis + n0, sh.mean + n0, sh.pedge + n0, sh.bias + n0, sh.sq + n0,
+                       sh.path + n0};
+      puct_factors(p, part, len, team.lane);
+    }
+  }
+  unsigned par[2] = {0u, 0u};
+  mbar_wait(&bar[0], par[0]);
+  __syncthreads();
+  int cur = 0, k = 0;
+  bool pending[2] = {false, false};
   Sel sel;
   for (int depth = 0; depth < cap; ++depth) {
-    const int* crow = g.cix + (size_t)cur * L;
-    const float* prow = g.prior + (size_t)cur * L;
-    const bool flip = p.flip && crow[A + 2] == 2;
-    const float bias = sh.bias[cur], sq = sh.sq[cur];
-    if (lane == 0) sh.path[cur] = 1;
-    Level lv;  // one strided pass, as the register kernel's one pass over its slots
-    for (int a = lane; a < A; a += 32)
-      lv.take(sh, a, crow[a], [&] { return prow[a]; }, flip, bias, sq);
-    lv.child = warp_best(lv.child);
-    const int child_c = lv.child.act >= 0 ? crow[lv.child.act] : -2;
-    if (child_c >= 0) {  // the likely next level's rows, on their way to L2
-      if (lane == 0) prefetch_l2(g.cix + (size_t)child_c * L, L * 4);
-      if (lane == 1) prefetch_l2(g.prior + (size_t)child_c * L, L * 4);
+    if (pending[k]) {
+      mbar_wait(&bar[k], par[k]);
+      pending[k] = false;
     }
-    int c = child_c;
-    const Best best = lv.choose(p.init_q_average, bias, sq, c);
+    const int pred = nxt[cur];
+    if (pred >= 0) {
+      if (tid == 0) stage_node(g, &bar[k ^ 1], ci_buf[k ^ 1], pr_buf[k ^ 1], pred, L);
+      pending[k ^ 1] = true;
+    }
+    const size_t o = (size_t)cur * L;
+    const int* crow = staged<int>(ci_buf[k], g.cix + o);
+    const float* prow = staged<float>(pr_buf[k], g.prior + o);
+    const bool flip = p.flip && crow[A + 2] == 2;
+    const int last_c = crow[A - 1];
+    const float bias = sh.bias[cur], sq = sh.sq[cur];
+    if (tid == 0) sh.path[cur] = 1;
+    Level lv;
+    for (int a = tid; a < A; a += T)
+      lv.take(sh, a, crow[a], [&] { return prow[a]; }, flip, bias, sq);
+    const LevelSum r = block_level(team, lv, crow);
+    int c = r.child_c;
+    const Best best = choose_level(r, p.init_q_average, bias, sq, c);
     int act = best.act;
     float tb = best.tb;
     if (act < 0) {  // no candidate at all: the reference's argmax gives A - 1
       act = A - 1;
       tb = -INFINITY;
-      c = crow[act];
+      c = last_c;
     }
-    if (settle(sel, sh, cur, act, c, tb, lane)) break;
-    cur = max(c, 0);  // a child, or the root when there is none (c == -2)
+    if (settle(sel, sh, cur, act, c, tb, tid)) break;
+    // a child (c >= 0), or no candidate at all (c == -2): the reference
+    // then clamps to the root
+    const int next = max(c, 0);
+    if (next != pred) {  // the walk left the previous path
+      if (pending[k ^ 1]) {
+        mbar_wait(&bar[k ^ 1], par[k ^ 1]);
+        // every thread has seen that phase complete before the barrier
+        // starts the next: a parity wait cannot tell them apart
+        __syncthreads();
+      }
+      if (tid == 0) stage_node(g, &bar[k ^ 1], ci_buf[k ^ 1], pr_buf[k ^ 1], next, L);
+      pending[k ^ 1] = true;
+    }
+    cur = next;
+    k ^= 1;
   }
-  __syncwarp();
-  write_selection(p, b, sh, sel, lane);
+  // no bulk copy may land after the block has left
+  for (int j = 0; j < 2; ++j)
+    if (pending[j]) mbar_wait(&bar[j], par[j]);
+  __syncthreads();
+  if (team.warp == 0) write_selection(p, b, sh, sel, team.lane);
 }
 
 using KernelFn = void (*)(const Args);
@@ -625,16 +1023,18 @@ KernelFn kernel_for(int A) {
   if (k == 3) return tree_step_v2_kernel<3>;
   if (k == 4) return tree_step_v2_kernel<4>;
   if (k <= 8) return tree_step_v2_kernel<8>;
-  if (k <= 12) return tree_step_v2_kernel<12>;
+  if (k <= kRegisterSlots) return tree_step_v2_kernel<kRegisterSlots>;
   return tree_step_v2_wide_kernel;
 }
 
-size_t dynamic_smem(int cap) {
-  return (size_t)kWarpsPerBlock * warp_smem_floats(cap) * sizeof(float);
-}
+bool is_wide(int A) { return A > 32 * kRegisterSlots; }
 
-constexpr size_t kMaxBlockSmem = 232448;  // Hopper's opt-in shared memory a block
-constexpr int kShapeTooLarge = -1;        // the block does not fit
+// dynamic shared memory a block: the register kernel's four warps, or the
+// wide kernel's one game
+size_t dynamic_smem(int cap, int A) {
+  if (!is_wide(A)) return (size_t)kWarpsPerBlock * warp_smem_floats(cap) * sizeof(float);
+  return WideLayout(cap, A + 8, wide_warps(A)).total;
+}
 
 }  // namespace
 
@@ -649,7 +1049,9 @@ extern "C" int tree_step_v2_launch(
     void* stream) {
   if (B == 0) return 0;
   const KernelFn kernel = kernel_for(A);
-  if (dynamic_smem(cap) > kMaxBlockSmem) return kShapeTooLarge;
+  const bool wide = is_wide(A);
+  const size_t smem = dynamic_smem(cap, A);
+  if (smem > kMaxBlockSmem) return kShapeTooLarge;
   Args p;
   p.B = B; p.cap = cap; p.A = A; p.L = L; p.s = s; p.phase = phase;
   p.flip = flip; p.init_q_average = init_q_average;
@@ -667,14 +1069,16 @@ extern "C" int tree_step_v2_launch(
   p.nparent = (int*)nparent; p.naction = (int*)naction; p.nleaf = (int*)nleaf;
   p.nnew = (uint8_t*)nnew; p.npath = (uint8_t*)npath; p.nprior = (float*)nprior;
 
-  const size_t smem = dynamic_smem(cap);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  kernel<<<blocks, kWarpsPerBlock * 32, smem, (cudaStream_t)stream>>>(p);
+  // the register kernel: four games a block; the wide kernel: one game a
+  // block of wide_warps(A) warps
+  const int blocks = wide ? B : (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int threads = 32 * (wide ? wide_warps(A) : kWarpsPerBlock);
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -683,12 +1087,12 @@ extern "C" int tree_step_v2_launch(
 extern "C" int tree_step_v2_attributes(int A, int cap, int* regs, int* static_smem,
                                        int* dynamic_smem_bytes) {
   const KernelFn kernel = kernel_for(A);
-  if (dynamic_smem(cap) > kMaxBlockSmem) return kShapeTooLarge;
+  if (dynamic_smem(cap, A) > kMaxBlockSmem) return kShapeTooLarge;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *static_smem = (int)attr.sharedSizeBytes;
-  *dynamic_smem_bytes = (int)dynamic_smem(cap);
+  *dynamic_smem_bytes = (int)dynamic_smem(cap, A);
   return 0;
 }

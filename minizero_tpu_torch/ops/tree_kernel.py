@@ -192,7 +192,7 @@ def fused_tree_step(
     if rc == _build.SHAPE_TOO_LARGE:
         raise ValueError(
             f"fused_tree_step: one game of {n} nodes x {a} actions needs more shared memory "
-            f"than a block may hold on this card (csrc/tree_step.cu, warps_for)")
+            f"than a block may hold on this card (csrc/tree_step.cu, dynamic_smem)")
     if rc != 0:
         raise RuntimeError(f"fused_tree_step: CUDA kernel launch failed (cudaError {rc})")
     if reward_regime:

@@ -796,47 +796,138 @@ def _wide_b2_search(a, sims, b, seed, dev="cuda"):
     return revisits
 
 
+# the wide tree steps' cases: (A, simulations, regime, B). The first 18 are
+# the grid at B = 64 (ids kept as before); then a row that starts 8 bytes
+# off a 16-byte boundary (A = 402), a group 5 count (A = 1456), one game (B
+# = 1, a block alone on the card: the console's shape), and n = 800 (N =
+# 801) at B <= 8, where the node vectors fill most of a block's shared memory
+_B1_WIDE_CASES = [pytest.param(a, sims, regime, 64, id=f"{a}-{sims}-{regime}")
+                  for regime in ("board", "reward", "gumbel_reward")
+                  for sims in (16, 200) for a in (385, 801, 3040)] + [
+    pytest.param(402, 16, "board", 64, id="402-16-board"),
+    pytest.param(402, 200, "reward", 64, id="402-200-reward"),
+    pytest.param(402, 16, "gumbel_reward", 1, id="402-16-gumbel_reward-B1"),
+    pytest.param(1456, 16, "board", 64, id="1456-16-board"),
+    pytest.param(1456, 200, "reward", 64, id="1456-200-reward"),
+    pytest.param(1456, 16, "board", 1, id="1456-16-board-B1"),
+    pytest.param(3040, 16, "board", 1, id="3040-16-board-B1"),
+    pytest.param(402, 800, "board", 8, id="402-800-board-B8"),
+    pytest.param(3040, 800, "board", 2, id="3040-800-board-B2"),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("regime", ["board", "reward", "gumbel_reward"])
-@pytest.mark.parametrize("sims", [16, 200])
-@pytest.mark.parametrize("a", [385, 801, 3040])
-def test_tree_step_above_384_actions_matches_plain(a, sims, regime):
+@pytest.mark.parametrize("a,sims,regime,b", _B1_WIDE_CASES)
+def test_tree_step_above_384_actions_matches_plain(a, sims, regime, b):
     """The tree step at more actions than a lane's registers hold (A = 385,
-    801 and 3040; N = 17 and 201; B = 64): the wide kernel against the plain
-    version at every step, in the board regime (Gumbel root, halving ticks,
-    tied leaves), the reward regime (PUCT, rescale) and the reward regime
-    with the Gumbel root (Tetris Block Puzzle's 801 actions under AlphaZero:
-    leaf rewards, rescale, halving ticks)."""
+    801 and 3040; N = 17 and 201; B = 64; and the cases above): the wide
+    kernel against the plain version at every step, in the board regime
+    (Gumbel root, halving ticks, tied leaves), the reward regime (PUCT,
+    rescale) and the reward regime with the Gumbel root (Tetris Block
+    Puzzle's 801 actions under AlphaZero: leaf rewards, rescale, halving
+    ticks)."""
     _need_card()
     from minizero_tpu_torch.ops._build import kernel_attributes
 
     assert kernel_attributes("tree_step", a, sims + 1)["dynamic_smem"] <= 232_448
-    trees, m0, depth = _wide_b1_search(a, sims, regime, 64, 80 + a % 7 + sims, dev="cuda")
+    trees, m0, depth = _wide_b1_search(a, sims, regime, b, 80 + a % 7 + sims, dev="cuda")
     assert depth >= 2
     if regime != "reward":
         assert int(trees.gumbel_sample_size.max()) < m0
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("sims", [16, 200])
-@pytest.mark.parametrize("a", [385, 801, 3040])
-def test_tree_step_v2_above_384_actions_matches_plain(a, sims):
-    """The v2 tree step at A = 385, 801 and 3040, capacity 17 and the
-    staged 65 -> 129 -> 201, B = 64: the wide kernel against the plain
-    version at every step, with terminal leaves revisited."""
+@pytest.mark.parametrize("a", [402, 3040])
+def test_tree_step_wide_halving_with_neg_inf_and_tied_scores(a):
+    """The wide kernel's halving tick, whose rank runs over the active set
+    only, against the plain version's whole-row rank: Gumbel AlphaZero at
+    n = 200, m = 16 and B = 64 on tied leaves, with the budget set to 0 so
+    that the first tick comes at simulation 1, when every active action
+    but one is unvisited (score NEG_INF), and a third of each game's active
+    actions made illegal (NEG_INF however often visited); the scores that
+    are not NEG_INF tie often (logits 0 or 1). Every step compared; every
+    game halves its candidates."""
     _need_card()
-    assert _wide_b2_search(a, sims, 64, 90 + a % 5 + sims, dev="cuda") > 0
+    from minizero_tpu_torch.search import mcts
+
+    b = 64
+    spec = mcts.SearchSpec(action_size=a, num_simulations=200, use_gumbel=True,
+                           use_gumbel_noise=False, use_dirichlet_noise=False,
+                           gumbel_sample_size=16, flip_player2_value=True)
+
+    def edit(trees):
+        trees = trees.clone()
+        active = trees.gumbel_active.clone()
+        rank = active.long().cumsum(1)
+        illegal = active & (rank % 3 == 0)
+        trees.legal[:, 0] &= ~illegal
+        trees.gumbel_budget.zero_()
+        return trees
+
+    trees, _, _ = _reward_regime_steps(spec, b, 97 + a, _tied_leaf(b, a), rewards=False,
+                                       edit=edit)
+    assert int(trees.gumbel_sample_size.max()) <= 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("a,sims,b", [pytest.param(a, sims, 64, id=f"{a}-{sims}")
+                                      for sims in (16, 200) for a in (385, 801, 3040)] + [
+    pytest.param(402, 200, 64, id="402-200"),
+    pytest.param(1456, 200, 64, id="1456-200"),
+    pytest.param(402, 200, 1, id="402-200-B1"),
+    pytest.param(3040, 16, 1, id="3040-16-B1"),
+    pytest.param(402, 800, 8, id="402-800-B8"),
+    pytest.param(3040, 800, 4, id="3040-800-B4"),
+])
+def test_tree_step_v2_above_384_actions_matches_plain(a, sims, b):
+    """The v2 tree step at A = 385, 801 and 3040, capacity 17 and the
+    staged 65 -> 129 -> 201, B = 64; A = 402 (rows 8 bytes off a 16-byte
+    boundary) and 1456; one game (B = 1); and capacity 801 (65 -> ... ->
+    513 -> 801) at B <= 8: the wide kernel against the plain version at
+    every step, with terminal leaves revisited."""
+    _need_card()
+    assert _wide_b2_search(a, sims, b, 90 + a % 5 + sims, dev="cuda") > 0
+
+
+def _window(x):
+    """Bytes of the 16-byte aligned window a bulk copy of x bytes fetches."""
+    return 16 * ((x + 30) // 16)
+
+
+def _round16(x):
+    return 16 * ((x + 15) // 16)
+
+
+def _wide_warps(a):
+    return min(8, max(2, (a + 383) // 384))
+
+
+def _b1_wide_smem(n, a):
+    """The wide tree step's block (one game): two mbarriers, two sets of
+    48-byte reduction slots a warp, two row buffers (children_index, prior,
+    legal), the root's active flags and the node vectors (24N + 3N bytes)."""
+    return (16 + 96 * _wide_warps(a) + 2 * (2 * _window(4 * a) + _window(a)) + _window(a)
+            + _round16(24 * n) + _round16(3 * n))
+
+
+def _b2_wide_smem(cap, a):
+    """B2's wide block: the same barriers and slots, two buffers of a cix
+    and a prior row (A + 8 lanes each) and the node statistics (28 cap +
+    cap bytes)."""
+    lanes = a + 8
+    return 16 + 96 * _wide_warps(a) + 4 * _window(4 * lanes) + _round16(28 * cap) + _round16(cap)
 
 
 @pytest.mark.gpu
 def test_shared_memory_ceilings():
     """On the card, the blocks' shared memory as the kernels' launchers size
     it: up to 384 actions the register kernel's four warps (5N + A +
-    (3N + 3) / 4 floats each); above, the wide kernel's warps, as many as fit
-    the 232,448 bytes a Hopper block may hold (at most four), with a row
-    staged in 3A + A/4 more floats; the ceiling at N = 17 lies near A =
-    17,800, and past it the wrapper raises ValueError. B2's block grows with
-    its capacity only, to capacity 2767."""
+    (3N + 3) / 4 floats each); above, the wide kernel's one game a block
+    (_b1_wide_smem: two bulk-copy row buffers of about 9A bytes, the
+    root's flags, the node vectors), within the 232,448 bytes a Hopper
+    block may hold: the ceiling at N = 17 is A = 12,160, and past it the
+    wrapper raises ValueError. B2's wide block (_b2_wide_smem) at A = 400
+    holds capacities up to 7,780."""
     _need_card()
     from minizero_tpu_torch.ops import tree_kernel
     from minizero_tpu_torch.ops._build import kernel_attributes
@@ -845,33 +936,33 @@ def test_shared_memory_ceilings():
     def b1(n, a):
         return kernel_attributes("tree_step", a, n)["dynamic_smem"]
 
-    def b2(cap):
-        return kernel_attributes("tree_step_v2", 400, cap)["dynamic_smem"]
+    def b2(cap, a=400):
+        return kernel_attributes("tree_step_v2", a, cap)["dynamic_smem"]
 
     limit = 232_448
     assert b1(17, 82) == 16 * (5 * 17 + 82 + 13)
     assert b1(17, 384) == 16 * (5 * 17 + 384 + 13)
-    per_warp = 4 * (5 * 17 + 3 * 385 + (51 + 385 + 3) // 4)
-    assert b1(17, 385) == 4 * per_warp
-    for n, a in ((17, 3040), (201, 3040), (801, 3040), (17, 17_800)):
-        assert b1(n, a) <= limit, (n, a)
-    per_warp = 4 * (5 * 201 + 3 * 3040 + (603 + 3040 + 3) // 4)
-    assert b1(201, 3040) == min(4, limit // per_warp) * per_warp
-    per_warp = 4 * (5 * 801 + 3 * 3040 + (2403 + 3040 + 3) // 4)
-    assert b1(801, 3040) == 4 * per_warp
+    for n, a in ((17, 385), (17, 402), (17, 801), (17, 1456), (17, 3040), (201, 3040),
+                 (801, 3040), (801, 402), (17, 12_160)):
+        assert b1(n, a) == _b1_wide_smem(n, a) <= limit, (n, a)
+    # at least two blocks an SM at Amazons' shape (228 KB an SM, 1 KB a block reserved)
+    assert 2 * (b1(17, 3040) + 1024) <= 228 * 1024
+    assert _b1_wide_smem(17, 12_161) > limit
     with pytest.raises(ValueError):
-        b1(17, 17_900)
-    assert b2(201) == 16 * (5 * 201 + 51) <= limit
-    assert b2(2767) <= limit
+        b1(17, 12_161)
+    assert b2(201, 82) == 16 * (5 * 201 + 51) <= limit
+    for cap, a in ((51, 400), (201, 402), (801, 3040), (7_780, 400)):
+        assert b2(cap, a) == _b2_wide_smem(cap, a) <= limit, (cap, a)
+    assert _b2_wide_smem(7_781, 400) > limit
     with pytest.raises(ValueError):
-        b2(2768)
-    spec = mcts.SearchSpec(action_size=17_900, num_simulations=16, use_gumbel=True,
+        b2(7_781)
+    spec = mcts.SearchSpec(action_size=12_161, num_simulations=16, use_gumbel=True,
                            use_gumbel_noise=False, use_dirichlet_noise=False)
     dev = torch.device("cuda")
     tree = mcts.init_tree(spec, torch.ones((1,), dtype=torch.int32, device=dev))
     sel = mcts.empty_selection(spec, 1, dev)
-    leaf = (torch.zeros((1, 17_900), device=dev), torch.zeros((1, 17_900), device=dev),
-            torch.ones((1, 17_900), dtype=torch.bool, device=dev),
+    leaf = (torch.zeros((1, 12_161), device=dev), torch.zeros((1, 12_161), device=dev),
+            torch.ones((1, 12_161), dtype=torch.bool, device=dev),
             torch.zeros((1,), dtype=torch.bool, device=dev), torch.zeros((1,), device=dev),
             torch.ones((1,), dtype=torch.int32, device=dev))
     with pytest.raises(ValueError, match="shared memory"):
