@@ -130,7 +130,14 @@ Phases:
      and 11d two gloo ranks on the one card (2 x 128 games, 20 SGD steps
      at global batch 256): record shards, one checkpoint from rank 0, the
      hosts line, each rank's B1 launches, and bitwise equal parameters on
-     every rank.
+     every rank; beside them 11e, the dense heads split over ``mp``:
+     ``ZeroLoop(mesh=make_mesh(model_parallel=2))``, dp 1 x mp 2, as two
+     gloo ranks on the card with 11c's games and seed (20 SGD steps at
+     batch 1024): each rank's local heads (policy 82 -> 41, value hidden
+     256 -> 128, the scalar value layer whole), its B1 launches, the record
+     file equal to 11c's byte for byte, rank 0's files only, a checkpoint
+     that loads into a plain network, and bitwise equal whole weights on
+     both ranks.
 
 Prints one progress line per phase, then a JSON line of kernel numbers, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -2317,6 +2324,7 @@ DP_STEPS_NCCL = 50
 DP_GAMES_GLOO = 128  # 11d: games a rank, two gloo ranks on the card
 DP_STEPS_GLOO = 20
 DP_BATCH_GLOO = 256  # the global batch of 11d
+TP_STEPS = 20  # 11e: SGD steps of the dp 1 x mp 2 run (its games are 11c's)
 DP_TIMEOUT = 300
 PHASE5_BUSY_MS = (34.3, 34.5)  # PERF.md §5: one gaz move's device busy time
 B1_PERF_MS = 0.0076  # PERF.md §6: B1 at sim 8, B=1024
@@ -2351,6 +2359,43 @@ torch.save({"rc": rc, "rank": loop.pid, "world": loop.num_procs, "backend": dist
            os.path.join(out_dir, f"rank{loop.pid}.pt"))
 dist.destroy_process_group()
 print(f"RANK_{loop.pid}_DONE", flush=True)
+"""
+
+
+# one of two gloo ranks of a dp 1 x mp 2 zero loop on the card: the dense
+# heads split over mp (there is no CLI flag for mp, as in JAX; the mesh is
+# built in code, as __graft_entry__.py's dry run builds its own), then
+# writes what the rank ended with: its local head shapes, its whole weights
+# (gathered) and self-play's, its B1 launches and moves
+TP_RANK_SCRIPT = r"""
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from minizero_tpu_torch.config import default_config
+from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
+from minizero_tpu_torch.parallel.distributed import init_distributed
+from minizero_tpu_torch.parallel.mesh import make_mesh, whole_state
+from minizero_tpu_torch.zero.loop import ZeroLoop
+out_dir, run_dir, over = sys.argv[2], sys.argv[3], json.loads(sys.argv[4])
+init_distributed(backend="gloo")
+mesh = make_mesh(model_parallel=2)
+loop = ZeroLoop(default_config("go", **over), run_dir, mesh=mesh)
+fused_tree_step.launches = 0
+loop.run()
+whole, _ = whole_state(mesh, loop.network)
+torch.cuda.synchronize()
+timing = loop.last_selfplay_timing
+cpu = lambda sd: {k: v.cpu() for k, v in sd.items()}
+torch.save({"rank": mesh.rank, "coords": (mesh.dp_rank, mesh.mp_rank, mesh.dp, mesh.mp),
+            "backend": dist.get_backend(), "device": str(loop.device),
+            "shapes": {k: tuple(v.shape) for k, v in loop.network.state_dict().items()},
+            "launches": fused_tree_step.launches,
+            "moves": timing["chunks"] * timing["moves_per_chunk"],
+            "whole": cpu(whole), "play": cpu(loop.play_network.state_dict())},
+           os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+dist.destroy_process_group()
+print(f"RANK_{mesh.rank}_DONE", flush=True)
 """
 
 
@@ -2548,7 +2593,91 @@ def data_parallel_run(nproc: int, backend: str, games_per_rank: int, steps: int,
                 "moves": [rk["moves"] for rk in ranks],
                 "launches": [rk["launches"] for rk in ranks], "selfplay_s": perf["selfplay_s"],
                 "optimize_s": perf["optimize_s"], "params": ranks[0]["flat"].numel(),
-                "devices": [rk["device"] for rk in ranks]}
+                "devices": [rk["device"] for rk in ranks],
+                "records": open(os.path.join(run_dir, "sgf", "1.sgf")).read()}
+
+
+def tensor_parallel_run(games: int, steps: int, batch: int) -> dict:
+    """11e: one flagship iteration (gaz n=16, 1 x 256, value hidden 256) of
+    ``ZeroLoop(cfg, run_dir, mesh=make_mesh(model_parallel=2))``, dp 1 x mp
+    2, as two gloo ranks on the card under ``torch.distributed.run``, with
+    11c's self-play settings and seed. Checks each rank's local head shapes
+    (the policy layer 82 -> 41 a rank, the hidden value layer 256 -> 128,
+    the scalar value layer whole), its B1 launches, that both ranks end
+    with bitwise the same whole weights and self-play's network equal to
+    them, that rank 0 alone wrote the run's files, and that the checkpoint
+    is the one-process format: it loads into a plain network, equal to the
+    ranks' whole weights. Returns the record file for the comparison with
+    11c's."""
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.models.factory import create_network
+
+    what = "dp 1 x mp 2 (two gloo ranks)"
+    over = dict(algorithm_preset("gaz"))
+    over.update(zero_num_parallel_games=games, zero_num_games_per_iteration=games,
+                learner_batch_size=batch, learner_training_step=steps,
+                learner_training_display_step=10, zero_end_iteration=1, program_seed=41)
+    with tempfile.TemporaryDirectory(prefix="tp_") as d:
+        script = os.path.join(d, "rank.py")
+        with open(script, "w") as f:
+            f.write(TP_RANK_SCRIPT)
+        run_dir = os.path.join(d, "run")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node=2", script, ROOT, d, run_dir, json.dumps(over)]
+        t = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                                  timeout=DP_TIMEOUT)
+        except subprocess.TimeoutExpired as e:
+            fail(f"{what}: no end within {DP_TIMEOUT} s: {(e.stdout or '')[-3000:]}")
+        seconds = time.perf_counter() - t
+        if proc.returncode != 0:
+            fail(f"{what}: exit {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+        heads = {"policy_head.fc.weight": (41, 2 * 81), "value_head.fc1.weight": (128, 81),
+                 "value_head.fc2.weight": (1, 256)}
+        for r, rk in enumerate(ranks):
+            if (rk["rank"], rk["coords"], rk["backend"]) != (r, (0, r, 1, 2), "gloo") or not \
+                    rk["device"].startswith("cuda"):
+                fail(f"{what}: rank {r} ran as {rk['coords']} on {rk['device']} ({rk['backend']})")
+            shapes = {k: rk["shapes"][k] for k in heads}
+            if shapes != heads:
+                fail(f"{what}: rank {r}'s local heads {shapes}, expected {heads}")
+            if rk["launches"] != rk["moves"] * 17 or rk["moves"] == 0:
+                fail(f"{what}: rank {r}: {rk['launches']} B1 launches over {rk['moves']} moves")
+            if not same_tensors(rk["whole"], ranks[0]["whole"]):
+                fail(f"{what}: rank {r}'s whole weights differ from rank 0's")
+            if not same_tensors(rk["play"], rk["whole"]):
+                fail(f"{what}: rank {r}'s self-play network is not its gathered weights")
+        files = sorted(os.path.relpath(os.path.join(p, f), run_dir)
+                       for p, _, fs in os.walk(run_dir) for f in fs)
+        want_files = sorted(["Training.log", "op.log", "perf.jsonl", os.path.join("sgf", "1.sgf"),
+                             os.path.join("model", "weight_iter_0.ckpt"),
+                             os.path.join("model", f"weight_iter_{steps}.ckpt")])
+        if [f for f in files if not f.startswith("analysis")] != want_files:
+            fail(f"{what}: the run wrote {files}, expected rank 0's {want_files}")
+        records = open(os.path.join(run_dir, "sgf", "1.sgf")).read()
+        if len(records.splitlines()) != games:
+            fail(f"{what}: {len(records.splitlines())} records, expected {games}")
+        cfg = default_config("go", **over)
+        net = create_network(cfg, make_env(cfg).spec)
+        t = time.perf_counter()
+        saved = torch.load(os.path.join(run_dir, "model", f"weight_iter_{steps}.ckpt"),
+                           map_location="cpu", weights_only=True)
+        net.load_state_dict(saved["model"])  # strict: the one-process names and shapes
+        load_s = time.perf_counter() - t
+        if not same_tensors(net.state_dict(), ranks[0]["whole"]):
+            fail(f"{what}: the checkpoint loaded into a plain network is not the ranks' weights")
+        line = [ln for ln in open(os.path.join(run_dir, "Training.log"))
+                if "games/s, 1 hosts)" in ln]
+        if len(line) != 1:
+            fail(f"{what}: no one '(1 hosts)' line in Training.log")
+        perf = json.loads(open(os.path.join(run_dir, "perf.jsonl")).readline())
+    return {"seconds": seconds, "hosts_line": line[0].split("] ", 1)[1].strip(),
+            "moves": [rk["moves"] for rk in ranks], "launches": [rk["launches"] for rk in ranks],
+            "selfplay_s": perf["selfplay_s"], "optimize_s": perf["optimize_s"],
+            "devices": [rk["device"] for rk in ranks], "records": records, "load_s": load_s}
 
 
 def phase11(gaz_dir: str, atari_records, zero_counts, counts) -> dict:
@@ -2580,18 +2709,23 @@ def phase11(gaz_dir: str, atari_records, zero_counts, counts) -> dict:
         + "; by source: " + "; ".join(f"{k[:40]} {us / 1e3:.2f} ms x{c}"
                                       for k, us, c in p["top_source"])
         + f"; in {time.perf_counter() - t:.2f} s")
-    # 11c and 11d run at the same time: three host-bound processes on the
-    # card and on separate cores (each alone took 58-69 s, mostly start-up
-    # and ~176 host-bound moves)
+    # 11c, 11d and 11e run at the same time: five host-bound processes on
+    # the card and on separate cores (11c and 11d each alone took 58-69 s,
+    # mostly start-up and ~176 host-bound moves)
     from concurrent.futures import ThreadPoolExecutor
 
     runs = (("nccl1", 1, "default", DP_GAMES_NCCL, DP_STEPS_NCCL, ZERO_BATCH),
             ("gloo2", 2, "gloo", DP_GAMES_GLOO, DP_STEPS_GLOO, DP_BATCH_GLOO))
     t = time.perf_counter()
-    with ThreadPoolExecutor(len(runs)) as pool:
+    with ThreadPoolExecutor(len(runs) + 1) as pool:
         futures = [pool.submit(data_parallel_run, *args[1:]) for args in runs]
+        tp_future = pool.submit(tensor_parallel_run, DP_GAMES_NCCL, TP_STEPS, ZERO_BATCH)
         done = [f.result() for f in futures]  # a failed check's exit comes through here
-    log(f"phase 11c and 11d side by side in {time.perf_counter() - t:.2f} s")
+        tp = tp_future.result()
+    log(f"phase 11c, 11d and 11e side by side in {time.perf_counter() - t:.2f} s")
+    if tp["records"] != done[0]["records"]:
+        fail("phase 11e: the dp 1 x mp 2 run's records differ from 11c's one process's, "
+             "same seed and games")
     for (key, nproc, backend, games, steps, batch), r in zip(runs, done):
         out[key] = r
         log(f"phase 11{'c' if nproc == 1 else 'd'} -mode zero -multi_device under "
@@ -2601,7 +2735,20 @@ def phase11(gaz_dir: str, atari_records, zero_counts, counts) -> dict:
             f"shards, one checkpoint from rank 0 equal to every rank's {r['params']} parameters "
             f"(bitwise equal across ranks); B1 launches {r['launches']} = 17 x moves "
             f"{r['moves']}; self-play {r['selfplay_s']:.2f} s, optimize {r['optimize_s']:.2f} s; "
-            f"command {r['seconds']:.2f} s (beside the other run)")
+            f"command {r['seconds']:.2f} s (beside the other runs)")
+        r.pop("records")
+    out["tp2"] = tp
+    log(f"phase 11e ZeroLoop(mesh=make_mesh(model_parallel=2)) under torch.distributed.run "
+        f"--nproc_per_node=2 (gloo; ranks on {', '.join(tp['devices'])}; gaz n=16, 1x256, value "
+        f"hidden 256, dp 1 x mp 2: policy 82 -> 41 and value hidden 256 -> 128 rows a rank; "
+        f"{DP_GAMES_NCCL} games in lock-step, {TP_STEPS} SGD steps at batch {ZERO_BATCH}): "
+        f"'{tp['hosts_line']}'; {DP_GAMES_NCCL} records equal to 11c's one process's byte for "
+        f"byte; rank 0 alone wrote the run's files; the checkpoint loads into a plain network "
+        f"({tp['load_s']:.2f} s) equal to both ranks' gathered weights (bitwise equal across "
+        f"ranks, and to self-play's network); B1 launches {tp['launches']} = 17 x moves "
+        f"{tp['moves']}; self-play {tp['selfplay_s']:.2f} s, optimize {tp['optimize_s']:.2f} s; "
+        f"command {tp['seconds']:.2f} s (beside 11c and 11d)")
+    tp.pop("records")
     return out
 
 
@@ -3233,7 +3380,7 @@ def main() -> None:
         "profile_b1_launches": p11["profile"]["b1_launches"],
         "profile_b1_ms": p11["profile"]["b1_ms"],
         "profile_device_ms_per_move": p11["profile"]["device_ms_per_move"],
-        **{f"multi_device_{key}_{k}": p11[key][k] for key in ("nccl1", "gloo2")
+        **{f"multi_device_{key}_{k}": p11[key][k] for key in ("nccl1", "gloo2", "tp2")
            for k in ("seconds", "selfplay_s", "optimize_s")}}
     print(json.dumps(result), flush=True)
     print(card, flush=True)

@@ -1656,7 +1656,9 @@ extern "C" int tree_step_launch(
   const KernelFn kernel = kernel_for(A);
   const bool wide = is_wide(A);
   const size_t smem = dynamic_smem(N, A);
-  if (wide && smem > kMaxBlockSmem) return kShapeTooLarge;
+  // either kernel: the register kernel's four warps pass the limit too
+  // (past N = 2,512 at A = 82)
+  if (smem > kMaxBlockSmem) return kShapeTooLarge;
   Args p;
   p.B = B; p.N = N; p.A = A; p.s = s; p.phase = phase;
   p.use_gumbel = use_gumbel; p.flip = flip; p.init_q_average = init_q_average;
@@ -1701,7 +1703,7 @@ extern "C" int tree_step_launch(
 extern "C" int tree_step_attributes(int A, int N, int* regs, int* static_smem,
                                     int* dynamic_smem_bytes) {
   const KernelFn kernel = kernel_for(A);
-  if (is_wide(A) && dynamic_smem(N, A) > kMaxBlockSmem) return kShapeTooLarge;
+  if (dynamic_smem(N, A) > kMaxBlockSmem) return kShapeTooLarge;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;

@@ -9,7 +9,8 @@ flax's running-variance update in training (``BatchNorm2d`` below).
 
 The heads flatten NCHW, as the reference does. The JAX package flattens
 NHWC, so ``weights.from_jax_variables`` permutes the input rows of the first
-dense layer of each head.
+dense layer of each head. ``ColumnParallelLinear`` is a head's dense layer
+split over the ranks of an ``mp`` group (``parallel/mesh.shard_heads``).
 """
 
 from __future__ import annotations
@@ -23,24 +24,26 @@ from torch import nn
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """A sum over the ranks of the process group whose gradient is the sum
-    of the ranks' gradients, as ``torch.distributed.nn.functional.all_reduce``
-    (deprecated in recent torch releases) computes it."""
+    """A sum over the ranks of ``group`` (None: the default group) whose
+    gradient is the sum of the ranks' gradients, as
+    ``torch.distributed.nn.functional.all_reduce`` (deprecated in recent
+    torch releases) computes it."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, group=None) -> torch.Tensor:
+        ctx.group = group
         x = x.clone()
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=group)
         return x
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        return _AllReduceSum.apply(grad)
+        return _AllReduceSum.apply(grad, ctx.group), None
 
 
-def _data_parallel() -> bool:
-    """Whether a process group of more than one rank is active."""
-    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+def _split_batch(group) -> bool:
+    """Whether a process group of more than one rank splits the batch."""
+    return dist.is_available() and dist.is_initialized() and dist.get_world_size(group) > 1
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -58,14 +61,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     data-parallel train step, ``parallel/distributed.py``), the batch mean
     and variance are those of the global batch, every rank's rows, as XLA
     computes them in the JAX package's sharded step: the per-channel count
-    and sum, then the centred sum of squares, are summed over the ranks by
-    a differentiable all-reduce. (``nn.SyncBatchNorm`` does the same on a
-    card only; the CPU tests run on gloo.)"""
+    and sum, then the centred sum of squares, are summed over the ranks of
+    ``group`` (the mesh's dp group: the ranks of an mp group hold the same
+    rows) by a differentiable all-reduce. (``nn.SyncBatchNorm`` does the
+    same on a card only; the CPU tests run on gloo.)"""
+
+    # the process group whose ranks hold the batch's rows (None: the default
+    # group); the sharded train step sets the mesh's dp group
+    group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
-        if _data_parallel():
+        if _split_batch(self.group):
             return self._global_batch_forward(x)
         old_var = self.running_var.clone()
         y = super().forward(x)
@@ -78,11 +86,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[1]
         dims = (0, 2, 3)
-        head = _AllReduceSum.apply(torch.cat([x.sum(dims), x.new_full((1,), x.numel() // c)]))
+        head = _AllReduceSum.apply(torch.cat([x.sum(dims), x.new_full((1,), x.numel() // c)]),
+                                   self.group)
         n = head[c]
         mean = head[:c] / n
         xc = x - mean[None, :, None, None]
-        var = _AllReduceSum.apply((xc * xc).sum(dims)) / n
+        var = _AllReduceSum.apply((xc * xc).sum(dims), self.group) / n
         y = xc * torch.rsqrt(var + self.eps)[None, :, None, None]
         if self.affine:
             y = y * self.weight[None, :, None, None] + self.bias[None, :, None, None]
@@ -162,6 +171,77 @@ class DiscreteValueHead(nn.Module):
         x = F.relu(self.bn(self.conv(x)))
         x = F.relu(self.fc1(x.flatten(1)))
         return self.fc2(x)
+
+
+class _SumGradient(torch.autograd.Function):
+    """The identity whose gradient is summed over the ranks of ``group``:
+    the input of a column-parallel layer is the same on every rank, and
+    each rank's gradient holds only its own columns' part of it."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _GatherColumns(torch.autograd.Function):
+    """``[B, out / size]``, the columns of rank ``rank``, to the whole
+    ``[B, out]`` on every rank of ``group``: an all-reduce of a zero-filled
+    ``[B, out]`` that holds this rank's columns (gloo reduces tensors on a
+    card, but gathers only on the CPU). Every rank computes the same loss
+    from the whole output, so the gradient is this rank's columns of the
+    incoming one."""
+
+    @staticmethod
+    def forward(ctx, y: torch.Tensor, rank: int, size: int, group) -> torch.Tensor:
+        cols = y.shape[-1]
+        ctx.cols = slice(rank * cols, (rank + 1) * cols)
+        out = y.new_zeros(y.shape[:-1] + (cols * size,))
+        out[..., ctx.cols] = y
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad[..., ctx.cols].contiguous(), None, None, None
+
+
+class ColumnParallelLinear(nn.Module):
+    """An ``nn.Linear`` whose output features are split over the ``size``
+    ranks of ``group`` (the JAX package's ``P(None, "mp")`` on a dense
+    kernel, ``minizero_tpu/parallel/mesh.py:41-54``): rank ``rank`` holds
+    rows ``rows`` of the weight and the bias, ``[out // size, in]`` and
+    ``[out // size]``. The forward computes this rank's columns and gathers
+    the whole ``[B, out]`` on every rank; the input's gradient is summed
+    over the group.
+
+    Built from a whole ``linear``, whose Parameters it takes over, cut to
+    this rank's rows: an optimizer built on them steps the shards."""
+
+    def __init__(self, linear: nn.Linear, rank: int, size: int, group):
+        super().__init__()
+        if linear.out_features % size:
+            raise ValueError(f"{linear.out_features} output features do not split over {size} ranks")
+        self.in_features, self.out_features = linear.in_features, linear.out_features
+        self.rank, self.size, self.group = rank, size, group
+        local = linear.out_features // size
+        self.rows = slice(rank * local, (rank + 1) * local)
+        with torch.no_grad():
+            for name in ("weight", "bias"):
+                p = getattr(linear, name)
+                if p is not None:
+                    p.data = p.data[self.rows].clone()
+                setattr(self, name, p)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(_SumGradient.apply(x, self.group), self.weight, self.bias)
+        return _GatherColumns.apply(y, self.rank, self.size, self.group)
 
 
 class _MinMaxNormalize(torch.autograd.Function):

@@ -20,7 +20,11 @@ gradient averaged over the ranks after every backward pass.
   BatchNorm's batch statistics are taken over the global batch
   (``models/blocks.py``), as XLA's sharded step takes them. The chunk form
   runs K steps and synchronises once, under the watchdog: the JAX package
-  measured the per-step form 4.4x slower distributed than solo.
+  measured the per-step form 4.4x slower distributed than solo. On a mesh
+  with ``mp > 1`` the step splits the dense heads over ``mp``
+  (``mesh.param_shardings``, ``models.blocks.ColumnParallelLinear``), as
+  the JAX step shards its state: the batch splits over ``dp`` only, and the
+  ranks of an ``mp`` group hold the same rows.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ import torch
 import torch.distributed as dist
 
 from minizero_tpu_torch import upload
-from minizero_tpu_torch.parallel.mesh import Mesh, batch_sharding, local_device
+from minizero_tpu_torch.models.blocks import BatchNorm2d, ColumnParallelLinear
+from minizero_tpu_torch.parallel.mesh import Mesh, batch_sharding, local_device, shard_heads
 from minizero_tpu_torch.parallel.watchdog import collective_watchdog
 
 LAUNCHER_VARIABLES = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "LOCAL_RANK")
@@ -69,28 +74,31 @@ def init_distributed(backend: Optional[str] = None, device=None) -> Tuple[int, i
 
 
 def all_gather_rows(mesh: Mesh, row: np.ndarray) -> np.ndarray:
-    """``[world, n]``: every rank's float64 ``row``, in rank order. An
-    all-reduce of a matrix that holds this rank's row (gloo reduces tensors
-    on a card, but gathers only on the CPU)."""
-    rows = torch.zeros((mesh.world_size, len(row)), dtype=torch.float64, device=mesh.device)
-    rows[mesh.rank] = torch.as_tensor(row, dtype=torch.float64)
-    if mesh.world_size > 1:
-        dist.all_reduce(rows)
+    """``[dp, n]``: the float64 ``row`` of every rank of this rank's ``dp``
+    column, in ``dp`` order (the ranks of an ``mp`` group hold the same
+    games). An all-reduce of a matrix that holds this rank's row (gloo
+    reduces tensors on a card, but gathers only on the CPU)."""
+    rows = torch.zeros((mesh.dp, len(row)), dtype=torch.float64, device=mesh.device)
+    rows[mesh.dp_rank] = torch.as_tensor(row, dtype=torch.float64)
+    if mesh.dp > 1:
+        dist.all_reduce(rows, group=mesh.dp_group)
     return rows.cpu().numpy()
 
 
 class ShardedSelfPlay:
     """A self-play engine playing this rank's slice of the global batch.
 
-    The engine runs unchanged on ``mesh.device``. Its generator is seeded
-    ``seed + rank`` (the counterpart of the JAX package's
-    ``fold_in(rng, axis_index)``), so the ranks draw different noise, resets
-    and samples; no collective runs inside a move."""
+    The engine runs unchanged on ``mesh.device``, on whole weights. Its
+    generator is seeded ``seed + dp_rank`` (the counterpart of the JAX
+    package's ``fold_in(rng, axis_index("dp"))``), so the ``dp`` rows draw
+    different noise, resets and samples and the ranks of an ``mp`` group
+    play the same games (JAX replicates them over ``mp``); no collective
+    runs inside a move."""
 
     def __init__(self, engine, mesh: Mesh, seed: int = 0):
         self.engine = engine
         self.mesh = mesh
-        engine.generator.manual_seed(int(seed) + mesh.rank)
+        engine.generator.manual_seed(int(seed) + mesh.dp_rank)
 
     def local_batch(self, batch_size: int) -> int:
         rows = batch_sharding(self.mesh, batch_size)
@@ -111,8 +119,8 @@ class ShardedSelfPlay:
 
 def global_batch_from_local(mesh: Mesh, local_batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """This rank's rows of a training batch (``[b_local, ...]`` host arrays,
-    ``b_local = B // world``) on its device; the global batch is the ranks'
-    rows in rank order."""
+    ``b_local = B // dp``) on its device; the global batch is the ``dp``
+    rows' rows in ``dp`` order."""
     return {k: upload(np.asarray(v), mesh.device) for k, v in local_batch.items()}
 
 
@@ -121,27 +129,40 @@ def global_stacked_from_local(mesh: Mesh, stacked: Dict[str, np.ndarray]) -> Dic
     return global_batch_from_local(mesh, stacked)
 
 
-def average_gradients(network: torch.nn.Module, mesh: Mesh) -> None:
-    """Average the parameters' gradients over the ranks: one all-reduce of
-    the flattened gradients."""
-    if mesh.world_size == 1:
+def _average(grads: List[torch.Tensor], size: int, group=None) -> None:
+    """Average ``grads`` in place over the ``size`` ranks of ``group``: one
+    all-reduce of the flattened tensors."""
+    if size == 1 or not grads:
         return
-    params = [p for p in network.parameters() if p.grad is not None]
-    if not params:
-        return
-    flat = torch.cat([p.grad.reshape(-1) for p in params])
-    dist.all_reduce(flat)
-    flat /= mesh.world_size
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= size
     offset = 0
-    for p in params:
-        n = p.grad.numel()
-        p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
+    for g in grads:
+        n = g.numel()
+        g.copy_(flat[offset:offset + n].view_as(g))
         offset += n
+
+
+def average_gradients(network: torch.nn.Module, mesh: Mesh) -> None:
+    """Average the parameters' gradients over the ``dp`` rows. A shard of a
+    split head averages with its ``dp`` column. A replicated parameter's
+    gradient is the same on the ranks of an ``mp`` group (they hold the
+    same rows and gather the same heads), so it is averaged over every
+    rank, which is its mean over ``dp`` and leaves every rank bitwise the
+    same gradient even where a card's backward pass sums in another order
+    from one process to the next."""
+    split = {id(p) for m in network.modules() if isinstance(m, ColumnParallelLinear)
+             for p in m.parameters()}
+    params = [p for p in network.parameters() if p.grad is not None]
+    _average([p.grad for p in params if id(p) not in split], mesh.world_size)
+    _average([p.grad for p in params if id(p) in split], mesh.dp, mesh.dp_group)
 
 
 def _average_metrics(metrics: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
     """Scalar metrics averaged over the ranks (the means over the global
-    batch); per-sample entries (``_new_values``) stay this rank's."""
+    batch: the ranks of an ``mp`` group hold the same ones); per-sample
+    entries (``_new_values``) stay this rank's."""
     if mesh.world_size == 1:
         return metrics
     keys = sorted(k for k, v in metrics.items() if v.dim() == 0)
@@ -156,9 +177,20 @@ def make_sharded_train_step(cfg, env, network: torch.nn.Module, mesh: Mesh) -> C
     rank's rows: the gradient is averaged over the ranks before the
     optimizer steps, so every rank applies the same update to the same
     weights (the replicated state of the JAX sharded step), and the scalar
-    metrics are averaged too. On one rank it is the plain step."""
+    metrics are averaged too. On one rank it is the plain step.
+
+    With ``mesh.mp > 1`` it first splits ``network``'s dense heads in place
+    (``mesh.shard_heads``; the JAX step places its state by
+    ``param_shardings``): an optimizer built on ``network`` steps the
+    shards, and a whole state loaded afterwards goes through
+    ``mesh.local_state``. BatchNorm's statistics are taken over the ``dp``
+    column."""
     from minizero_tpu_torch.learner.train import make_train_step
 
+    shard_heads(mesh, network)
+    for m in network.modules():
+        if isinstance(m, BatchNorm2d):
+            m.group = mesh.dp_group
     step = make_train_step(cfg, env, network,
                            grad_hook=lambda: average_gradients(network, mesh))
 

@@ -17,7 +17,9 @@ reference's, which the analysis tooling parses.
 The loop hands the engine the very module the optimizer updates: the engine
 keeps its bf16 inference copy in step with it at every move, and the train
 step leaves it in eval mode, so self-play after an optimize plays the new
-weights with running statistics.
+weights with running statistics. Under a mesh whose dense heads split over
+``mp`` the engine plays a whole copy instead, refreshed from the gathered
+heads after each optimize, so no collective runs inside a move.
 
 Atari runs its env on the host (``envs/atari.py``, the ALE injectable as
 ``ale_factory``): ``selfplay/host_engine.py`` searches on the device and
@@ -26,16 +28,21 @@ frame window (``learner/frame_window.py``) keeps the replay window's frames
 on the device, and each SGD step's stacks are assembled there.
 
 With a ``mesh`` (``parallel/mesh.py``: this process's rank, the number of
-ranks and its card) the loop is one rank of a data-parallel run, as the JAX
-loop's mesh and multi-host paths are: each rank plays ``ceil(games /
-world)`` games on its card (``parallel/distributed.ShardedSelfPlay``) into
-its own record shard (``sgf/{it}.sgf`` on rank 0, ``sgf/{it}.p{rank}.sgf``
-on the others; the logs likewise), the self-play statistics are gathered
-over the ranks, each rank samples ``batch // world`` rows from its own
-replay buffer for the data-parallel train step, rank 0 writes the
-checkpoint, and every collective outside a move runs under the collective
-watchdog (``zero_collective_timeout``). Atari under a mesh is refused, as
-in JAX.
+ranks, its card and its ``(dp, mp)`` coordinates) the loop is one rank of a
+data-parallel run, as the JAX loop's mesh and multi-host paths are: each
+``dp`` row plays ``ceil(games / dp)`` games on its card
+(``parallel/distributed.ShardedSelfPlay``) into its own record shard
+(``sgf/{it}.sgf`` on row 0, ``sgf/{it}.p{row}.sgf`` on the others; the logs
+likewise), the self-play statistics are gathered over the rows, each rank
+samples ``batch // dp`` rows from its own replay buffer for the
+data-parallel train step, rank 0 writes the checkpoint, and every
+collective outside a move runs under the collective watchdog
+(``zero_collective_timeout``). With ``mp > 1`` the ranks of an ``mp`` group
+play the same games and sample the same rows (one ``dp`` row, as JAX
+replicates its batch over ``mp``); its rank 0 alone writes the row's
+files, so a ``dp = 1`` run writes what one process writes, and the
+checkpoint holds whole heads and momentum (gathered over ``mp``; a load
+splits them again). Atari under a mesh is refused, as in JAX.
 
 Rank 0 redraws the analysis plots (``tools/analysis.py``) every 5
 iterations and at the last one; where that fails (no matplotlib) it logs
@@ -44,6 +51,7 @@ one ``[Analysis] skipped`` line and training goes on.
 
 from __future__ import annotations
 
+import copy
 import gzip
 import json
 import os
@@ -66,7 +74,7 @@ from minizero_tpu_torch.learner.train import init_train_state, make_train_step
 from minizero_tpu_torch.models.factory import create_network, init_network
 from minizero_tpu_torch.parallel.distributed import (
     ShardedSelfPlay, all_gather_rows, global_batch_from_local, make_sharded_train_chunk)
-from minizero_tpu_torch.parallel.mesh import replicated
+from minizero_tpu_torch.parallel.mesh import local_state, replicated, whole_state
 from minizero_tpu_torch.parallel.watchdog import collective_watchdog
 from minizero_tpu_torch.selfplay.collector import TrajectoryCollector
 from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
@@ -117,22 +125,25 @@ class ZeroLoop:
     on the CPU. For Atari, ``ale_factory(seed)`` builds the episodes' ALE
     handles (default: the real ALE of ``ale_py``). With ``mesh``
     (``parallel/mesh.make_mesh`` in a joined process group) the loop is
-    that rank of a data-parallel run, on ``mesh.device``."""
+    that rank of a data-parallel run, on ``mesh.device``; ``pid`` and
+    ``num_procs`` are its ``dp`` row and the number of rows, and
+    ``writes`` says whether it writes the row's files (``mp`` rank 0)."""
 
     def __init__(self, cfg: Config, run_dir: str, device=None, ale_factory=None, mesh=None):
         self.mesh = mesh
         self.device = mesh.device if mesh is not None else resolve_device(device)
-        self.pid = mesh.rank if mesh is not None else 0
-        self.num_procs = mesh.world_size if mesh is not None else 1
-        self.is_main = self.pid == 0
+        self.pid = mesh.dp_rank if mesh is not None else 0
+        self.num_procs = mesh.dp if mesh is not None else 1
+        self.writes = mesh is None or mesh.mp_rank == 0
+        self.is_main = self.pid == 0 and self.writes
         self.cfg = cfg
         self.run_dir = run_dir
         os.makedirs(os.path.join(run_dir, "model"), exist_ok=True)
         os.makedirs(os.path.join(run_dir, "sgf"), exist_ok=True)
-        # rank 0 keeps the unsuffixed file names; rank r appends .p{r}
-        self.shard = "" if self.is_main else f".p{self.pid}"
-        self._log_file = open(os.path.join(run_dir, f"Training{self.shard}.log"), "a")
-        self._op_log = open(os.path.join(run_dir, f"op{self.shard}.log"), "a")
+        # row 0 keeps the unsuffixed file names; row r appends .p{r}
+        self.shard = "" if self.pid == 0 else f".p{self.pid}"
+        self._log_file = open(self._row_file(f"Training{self.shard}.log"), "a")
+        self._op_log = open(self._row_file(f"op{self.shard}.log"), "a")
         self.is_host_env = cfg.env_name == "atari"
         self.vec_env = self.frame_window = None
         if self.is_host_env and mesh is not None:
@@ -168,6 +179,10 @@ class ZeroLoop:
             # every rank starts from rank 0's weights (an auto seed differs)
             with self._watchdog("replicate_weights"):
                 replicated(mesh, self.network)
+        # self-play's whole network: the trained one, or under split heads a
+        # whole copy that follows it (refresh_play_network)
+        self.play_network = (copy.deepcopy(self.network) if mesh is not None and mesh.mp > 1
+                             else self.network)
         self.state = init_train_state(cfg, self.network)
         if self.is_host_env:
             self.engine = HostSelfPlayEngine(
@@ -180,12 +195,12 @@ class ZeroLoop:
                 cfg, self.env.spec, cfg.zero_num_parallel_games)
         else:
             self.engine = SelfPlayEngine(
-                self.env, cfg, self.network, device=self.device, seed=seed,
+                self.env, cfg, self.play_network, device=self.device, seed=seed,
                 use_bf16=self.device.type == "cuda")
         self.sharded = None
         if mesh is not None:
             # this rank's games and rows; the gradient averaged over ranks,
-            # K steps a synchronise
+            # K steps a synchronise; with mp > 1 the chunk splits the heads
             self.sharded = ShardedSelfPlay(self.engine, mesh, seed)
             self._train_chunk = make_sharded_train_chunk(
                 cfg, self.env, self.network, mesh, cfg.zero_collective_timeout, self.log)
@@ -218,6 +233,20 @@ class ZeroLoop:
         """The collective watchdog around a collective of the mesh path."""
         return collective_watchdog(name, self.cfg.zero_collective_timeout, self.log)
 
+    def _row_file(self, name: str) -> str:
+        """The path of a file of this rank's row in the run directory, or
+        ``os.devnull`` on an ``mp`` rank other than 0 (it writes nothing)."""
+        return os.path.join(self.run_dir, name) if self.writes else os.devnull
+
+    def refresh_play_network(self) -> None:
+        """Under split heads, load the trained heads, gathered over ``mp``,
+        into self-play's whole network (a no-op otherwise)."""
+        if self.play_network is self.network:
+            return
+        with self._watchdog(f"gather_heads_{self.state.step}"):
+            model, _ = whole_state(self.mesh, self.network)
+        self.play_network.load_state_dict(model)
+
     # -------------------------------------------------------------- selfplay
     def self_play_iteration(self, iteration: int) -> Dict[str, float]:
         if self.is_host_env:
@@ -234,7 +263,7 @@ class ZeroLoop:
         num_games, lengths, returns = 0, [], []
         # each rank plays its share of the iteration's games into its shard
         games_target = -(-cfg.zero_num_games_per_iteration // self.num_procs)
-        record_path = os.path.join(self.run_dir, "sgf", f"{iteration}{self.shard}.sgf")
+        record_path = self._row_file(os.path.join("sgf", f"{iteration}{self.shard}.sgf"))
         model_file = f"weight_iter_{self.state.step}"
         t0 = time.time()
         # chunked collection: move_scan advances every game M moves (with
@@ -431,6 +460,7 @@ class ZeroLoop:
             self._optimize_sharded()
         else:
             self._optimize_steps()
+        self.refresh_play_network()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.time() - t0
@@ -447,11 +477,12 @@ class ZeroLoop:
 
     def _optimize_sharded(self) -> None:
         """The mesh path: chunks of K data-parallel steps (K the display
-        period, at most 100), each rank sampling ``batch // world`` rows of
-        every step from its own buffer up front; the chunk synchronises once
-        under the watchdog. With PER each rank refreshes its own rows after
-        the chunk, so sampling lags the refresh by fewer than K steps (the
-        JAX loop's chunked optimizer)."""
+        period, at most 100), each rank sampling ``batch // dp`` rows of
+        every step from its own buffer up front (the ranks of an ``mp``
+        group the same rows: the same buffer and seeds); the chunk
+        synchronises once under the watchdog. With PER each rank refreshes
+        its own rows after the chunk, so sampling lags the refresh by fewer
+        than K steps (the JAX loop's chunked optimizer)."""
         cfg = self.cfg
         local_bs = cfg.learner_batch_size // self.num_procs
         chunk = max(1, min(cfg.learner_training_display_step, 100))
@@ -517,14 +548,20 @@ class ZeroLoop:
         written to a temporary name and renamed: a crash mid-write never
         leaves a truncated newest checkpoint. Under a mesh the state is the
         same on every rank: rank 0 alone writes it, then every rank waits at
-        a barrier (under the watchdog)."""
+        a barrier (under the watchdog). Split heads and their momentum are
+        gathered over ``mp`` first, so the file is the one one process
+        writes."""
         step = self.state.step
         path = os.path.join(self.run_dir, "model", f"weight_iter_{step}.ckpt")
+        model, optimizer = self.network.state_dict(), self.state.optimizer.state_dict()
+        if self.play_network is not self.network:
+            with self._watchdog(f"ckpt_gather_{step}"):
+                model, optimizer = whole_state(self.mesh, self.network, self.state.optimizer)
         if self.is_main:
             payload = {
                 "training_step": step,
-                "model": self.network.state_dict(),
-                "optimizer": self.state.optimizer.state_dict(),
+                "model": model,
+                "optimizer": optimizer,
                 "config": self.cfg.to_string(),
             }
             tmp = path + ".tmp"
@@ -536,9 +573,16 @@ class ZeroLoop:
         return path
 
     def load_checkpoint(self, path: str) -> None:
+        """One process's checkpoint; under split heads, self-play's network
+        takes it whole and the trained one this rank's rows."""
         payload = torch.load(path, map_location=self.device, weights_only=True)
-        self.network.load_state_dict(payload["model"])
-        self.state.optimizer.load_state_dict(payload["optimizer"])
+        model, optimizer = payload["model"], payload["optimizer"]
+        if self.play_network is not self.network:
+            self.play_network.load_state_dict(model)
+            self.play_network.eval()
+            model, optimizer = local_state(self.mesh, self.network, model, optimizer)
+        self.network.load_state_dict(model)
+        self.state.optimizer.load_state_dict(optimizer)
         self.state.step = int(payload["training_step"])
         self.network.eval()
 
@@ -654,7 +698,7 @@ class ZeroLoop:
         cfg = self.cfg
         self.save_checkpoint()
         run_token = uuid.uuid4().hex[:12]
-        with open(os.path.join(self.run_dir, f"perf{self.shard}.jsonl"), "a") as perf_log:
+        with open(self._row_file(f"perf{self.shard}.jsonl"), "a") as perf_log:
             for iteration in range(cfg.zero_start_iteration + 1, cfg.zero_end_iteration + 1):
                 w0, p0 = time.time(), time.perf_counter()
                 self.self_play_iteration(iteration)

@@ -169,14 +169,15 @@ def _run_ranks(code, args_of_rank, world=2, timeout=TIMEOUT):
     return [(rc, out) for out, rc in outs]
 
 
-def _gloo_jobs(tmp_path, jobs, world=2):
-    """Run ``jobs`` on ``world`` gloo ranks; returns each rank's results."""
+def _gloo_jobs(tmp_path, jobs, world=2, worker=_WORKER):
+    """Run ``jobs`` on ``world`` gloo ranks of ``worker`` (argv as
+    ``_WORKER``'s); returns each rank's results."""
     job_file = str(tmp_path / "jobs.pkl")
     with open(job_file, "wb") as f:
         pickle.dump(jobs, f)
     port = str(_free_port())
-    res = _run_ranks(_WORKER, lambda r: [str(r), str(world), port, job_file,
-                                         str(tmp_path / f"out{r}.pt"), ROOT], world)
+    res = _run_ranks(worker, lambda r: [str(r), str(world), port, job_file,
+                                        str(tmp_path / f"out{r}.pt"), ROOT], world)
     for r, (rc, out) in enumerate(res):
         assert rc == 0 and f"RANK_{r}_DONE" in out, f"rank {r}:\n{out[-4000:]}"
     return [torch.load(str(tmp_path / f"out{r}.pt"), weights_only=False) for r in range(world)]
@@ -190,7 +191,8 @@ def test_init_distributed_without_a_launcher_is_a_no_op(monkeypatch):
     mesh = make_mesh(device="cpu")
     assert (mesh.rank, mesh.world_size, mesh.device.type) == (0, 1, "cpu")
     assert batch_sharding(mesh, 8) == slice(0, 8)
-    with pytest.raises(NotImplementedError, match="A11b"):
+    # one rank cannot hold mp = 2
+    with pytest.raises(ValueError, match="model_parallel=2"):
         make_mesh(model_parallel=2, device="cpu")
 
 

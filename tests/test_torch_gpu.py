@@ -970,6 +970,53 @@ def test_shared_memory_ceilings():
 
 
 @pytest.mark.gpu
+def test_register_tree_step_refuses_more_nodes_than_a_block_holds():
+    """B1's register kernel (A <= 384) past its shared-memory ceiling: its
+    four warps take 16 (5N + A + (3N + 3) / 4) bytes, 232,416 at N = 2,512
+    and A = 82 (the ceiling) and 240,512 at N = 2,600, above the 232,448 a
+    Hopper block may hold. The launcher refuses that shape as it refuses
+    the wide kernel's, so the wrapper raises the ValueError that names
+    dynamic_smem, not a launch error."""
+    _need_card()
+    from minizero_tpu_torch.ops import tree_kernel
+    from minizero_tpu_torch.ops._build import kernel_attributes
+    from minizero_tpu_torch.search import mcts
+
+    assert kernel_attributes("tree_step", 82, 2512)["dynamic_smem"] == 232_416
+    with pytest.raises(ValueError):
+        kernel_attributes("tree_step", 82, 2513)
+    b, a, n = 4, 82, 2600
+    spec = mcts.SearchSpec(action_size=a, num_simulations=n - 1, use_gumbel=True,
+                           use_gumbel_noise=False, use_dirichlet_noise=False)
+    dev = torch.device("cuda")
+    tree = mcts.init_tree(spec, torch.ones((b,), dtype=torch.int32, device=dev))
+    sel = mcts.empty_selection(spec, b, dev)
+    leaf = (torch.zeros((b, a), device=dev), torch.zeros((b, a), device=dev),
+            torch.ones((b, a), dtype=torch.bool, device=dev),
+            torch.zeros((b,), dtype=torch.bool, device=dev), torch.zeros((b,), device=dev),
+            torch.ones((b,), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="dynamic_smem"):
+        tree_kernel.fused_tree_step(spec, tree, sel, *leaf, 0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime", ["board", "reward"])
+def test_register_tree_step_at_801_nodes_matches_plain(regime):
+    """B1's register kernel below its ceiling at n = 800 (N = 801, A = 82,
+    75,008 bytes a block), B = 8: every step of a search against the plain
+    version, in the board regime (Gumbel root, tied leaves, halving ticks)
+    and the reward regime (PUCT, rescale)."""
+    _need_card()
+    from minizero_tpu_torch.ops._build import kernel_attributes
+
+    assert kernel_attributes("tree_step", 82, 801)["dynamic_smem"] == 75_008
+    trees, m0, depth = _wide_b1_search(82, 800, regime, 8, 61, dev="cuda")
+    assert depth >= 2
+    if regime == "board":
+        assert int(trees.gumbel_sample_size.max()) < m0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("algo", ["gaz", "gmz"])
 def test_train_step_on_card_matches_cpu(algo):
     """3 SGD steps of the AlphaZero or MuZero (K=5) train step on the card
@@ -1468,3 +1515,103 @@ def test_world_one_nccl_train_step_matches_plain_on_card():
         torch.testing.assert_close(m_dp[key], m_plain[key], rtol=0, atol=1e-5, msg=key)
     for key, want in plain_net.state_dict().items():
         torch.testing.assert_close(dp_net.state_dict()[key], want, rtol=0, atol=1e-5, msg=key)
+
+
+# one of two gloo ranks on the card, dp 1 x mp 2: argv = repo, rank, port,
+# the job file (overrides, batch, rotations), the output file
+_SPLIT_HEADS_RANK = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+rank, port, job_file, out_file = int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]
+torch.backends.cudnn.allow_tf32 = False
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
+from minizero_tpu_torch.config import default_config
+from minizero_tpu_torch.envs import make_env
+from minizero_tpu_torch.learner.train import init_train_state
+from minizero_tpu_torch.models.factory import create_network, init_network
+from minizero_tpu_torch.parallel.distributed import make_sharded_train_step
+from minizero_tpu_torch.parallel.mesh import make_mesh, whole_state
+
+job = torch.load(job_file, weights_only=False)
+cfg = default_config("go", **job["over"])
+env = make_env(cfg)
+net = init_network(create_network(cfg, env.spec), seed=3).cuda()
+mesh = make_mesh(model_parallel=2, device="cuda")
+step = make_sharded_train_step(cfg, env, net, mesh)
+metrics = step(init_train_state(cfg, net), job["batch"], rotations=job["rotations"].cuda())
+whole, _ = whole_state(mesh, net)
+torch.save({"metrics": {k: v.cpu() for k, v in metrics.items()},
+            "model": {k: v.cpu() for k, v in whole.items()},
+            "fc": tuple(net.policy_head.fc.weight.shape), "device": str(net.policy_head.fc.weight.device)},
+           out_file)
+dist.destroy_process_group()
+print(f"RANK_{rank}_DONE", flush=True)
+"""
+
+
+@pytest.mark.gpu
+def test_split_heads_train_step_on_two_gloo_ranks_matches_plain_on_card(tmp_path):
+    """The train step with the dense heads split over mp = 2 (dp 1 x mp 2),
+    two gloo ranks on the one card (NCCL refuses two ranks on one card),
+    equals the plain step on the card (Go 9x9 gaz, 1 x 32, value hidden 32,
+    batch 64, TF32 off): metrics and whole parameters within 1e-5, the
+    policy layer's 82 outputs held 41 a rank, both ranks bitwise equal."""
+    _need_card()
+    import socket
+
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.learner.train import init_train_state, make_train_step
+    from minizero_tpu_torch.models.factory import create_network, init_network
+    from minizero_tpu_torch.utils.bitpack import pack_planes
+
+    over = dict(algorithm_preset("gaz"))
+    over.update(nn_num_hidden_channels=32, nn_num_value_hidden_channels=32)
+    cfg = default_config("go", **over)
+    env = make_env(cfg)
+    rng = np.random.default_rng(5)
+    b = 64
+    p = rng.random((b, env.spec.action_size))
+    batch = {"features": pack_planes(torch.from_numpy(rng.random((b, 9, 9, 18)) > 0.5)).numpy(),
+             "loss_scale": np.ones(b, np.float32), "value": rng.choice([-1.0, 1.0], b).astype(np.float32),
+             "policy": (p / p.sum(-1, keepdims=True)).astype(np.float16)}
+    rots = torch.from_numpy(rng.integers(0, 8, b))
+    job = str(tmp_path / "job.pt")
+    torch.save({"over": over, "batch": batch, "rotations": rots}, job)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    env_vars = {k: v for k, v in os.environ.items()
+                if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    procs = [subprocess.Popen([sys.executable, "-c", _SPLIT_HEADS_RANK, ROOT, str(r), port, job,
+                               str(tmp_path / f"rank{r}.pt")], cwd=ROOT, env=env_vars,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [pr.communicate(timeout=300)[0] for pr in procs]
+    finally:
+        for pr in procs:
+            pr.kill()
+    for r, (pr, out) in enumerate(zip(procs, outs)):
+        assert pr.returncode == 0 and f"RANK_{r}_DONE" in out, f"rank {r}:\n{out[-4000:]}"
+    ranks = [torch.load(str(tmp_path / f"rank{r}.pt")) for r in range(2)]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        net = init_network(create_network(cfg, env.spec), seed=3).cuda()
+        m_plain = make_train_step(cfg, env, net)(init_train_state(cfg, net), batch,
+                                                 rotations=rots.cuda())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for rk in ranks:
+        assert rk["fc"] == (41, 2 * 81) and rk["device"].startswith("cuda"), rk["fc"]
+        for key, want in ranks[0]["model"].items():
+            assert torch.equal(rk["model"][key], want), key
+    for key in m_plain:
+        torch.testing.assert_close(ranks[0]["metrics"][key], m_plain[key].cpu(), rtol=0,
+                                   atol=1e-5, msg=key)
+    for key, want in net.state_dict().items():
+        torch.testing.assert_close(ranks[0]["model"][key], want.cpu(), rtol=0, atol=1e-5,
+                                   msg=key)
