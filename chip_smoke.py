@@ -12,8 +12,9 @@ the families Othello, NoGo, Kill-All-Go, Clobber, Gomoku and Hex, then 2048
 and Boxes, Breakthrough, ConHex and Havannah, then Atari's self-play over
 the host env and its zero iteration, and Lines of Action, Surakarta,
 Santorini and Amazons, then the tools (the profiler and its trace report
-among them) and the zero loop over ``torch.distributed``, and holds every
-CUDA kernel of them against its plain PyTorch version on the card:
+among them) and the zero loop over ``torch.distributed``, then the README's
+strength protocol at n=800, and holds every CUDA kernel of them against its
+plain PyTorch version on the card:
 
 - the flagship Go 9x9 Gumbel AlphaZero path, n=16, 1024 games (tree step
   B1, ``csrc/tree_step.cu``, board regime);
@@ -138,6 +139,20 @@ Phases:
      file equal to 11c's byte for byte, rank 0's files only, a checkpoint
      that loads into a plain network, and bitwise equal whole weights on
      both ranks.
+ 12. the README's strength protocol at n=800 (``scripts/n800_pair.py``:
+     800 simulations, the most visited action, no noise, eval mode, 4
+     uniform opening plies, 96 games in lock-step), Go 9x9 at 1 x 256 in
+     two eval engines as ``play_match`` builds them, each path 8 searched
+     plies after the openings: 12a az n=800, the trained az n=200 net of
+     ``minizero_tpu_torch/assets/`` against a seeded init (B2 staged 65 ->
+     ... -> 801, B3 over the [96, 801, 700] blob), 12b gaz n=800 between
+     two seeded inits (B1 on [96, 801, 82] trees, sequential halving of 16
+     candidates); the first ply's tree steps at simulations 0, 1, 2, 100,
+     400 and 800 (and every row gather) beside the plain versions, exact
+     launch counts over the 8 plies, every action legal, ms per ply, the
+     games finished so far, and B1 and B2 timed at simulations 100, 400
+     and 800 beside their plain versions and bounds, B3 beside
+     ``x[arange(B), idx]``.
 
 Prints one progress line per phase, then a JSON line of kernel numbers, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -2752,6 +2767,228 @@ def phase11(gaz_dir: str, atari_records, zero_counts, counts) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the README's strength protocol at n=800
+# ---------------------------------------------------------------------------
+
+# scripts/n800_pair.py:47-52 and scripts/elo_curve.py:16: 800 simulations,
+# the most visited action, no noise, eval mode, 4 uniform opening plies,
+# min(games, 96) games in lock-step; each path plays N800_PLIES searched
+# plies after the openings
+N800_PROTOCOL = ("actor_num_simulation=800:actor_select_action_by_count=true:"
+                 "actor_select_action_by_softmax_count=false:actor_use_dirichlet_noise=false:"
+                 "actor_use_gumbel_noise=false")
+N800_BATCH = 96
+N800_OPENING_PLIES = 4
+N800_PLIES = 8
+# the first searched ply's tree steps at these simulations run beside the
+# plain version (a plain step on an 801-node tree is slow); those at
+# N800_TIMED_SIMS are kept and timed
+N800_CHECKED_SIMS = (0, 1, 2, 100, 400, 800)
+N800_TIMED_SIMS = (100, 400, 800)
+
+
+class SimsChecked(TreeStepCheck):
+    """B1 for phase 12: the tree steps of simulations ``check_sims`` beside
+    the plain version, copies of those at ``keep_sims`` kept
+    (``kept_at[sim]``); every other step runs the kernel alone."""
+
+    def __init__(self, check_sims, keep_sims):
+        super().__init__(-1)
+        self.check_sims, self.keep_sims = set(check_sims), set(keep_sims)
+        self.kept_at = {}
+
+    def __call__(self, spec, trees, sel, *rest, leaf_reward=None):
+        node_idx = rest[-2]
+        if node_idx not in self.check_sims:
+            return self.kernel(spec, trees, sel, *rest, leaf_reward=leaf_reward)
+        self.keep_sim, self.kept = (node_idx if node_idx in self.keep_sims else -1), None
+        out = super().__call__(spec, trees, sel, *rest, leaf_reward=leaf_reward)
+        if self.kept is not None:
+            self.kept_at[node_idx] = self.kept
+        return out
+
+
+def n800_path(algo: str, net_a, net_b, seed: int, zero_counts, counts) -> dict:
+    """One path of the protocol: net A (Player 1) against net B in two eval
+    engines (bf16, as ``play_match`` builds them), ``N800_BATCH`` games from
+    ``N800_OPENING_PLIES`` uniform plies (``eval.match._random_openings``),
+    then ``N800_PLIES`` plies, each one search by the mover's engine, the
+    games' finished flags and scores kept as ``play_match`` keeps them. The
+    first searched ply runs its tree steps at ``N800_CHECKED_SIMS`` (and on
+    the large-N loop every row gather) beside the plain versions; the launch
+    counters are 0 just before the searched plies and read just after."""
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.envs.base import select_states
+    from minizero_tpu_torch.eval.match import _random_openings
+    from minizero_tpu_torch.ops.gather_rows import gather_rows
+    from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
+    from minizero_tpu_torch.ops.tree_kernel_v2 import fused_tree_step_v2
+    from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
+
+    cfg = default_config("go", **algorithm_preset(algo)).load_string(N800_PROTOCOL)
+    cfg = cfg.replace(zero_num_parallel_games=N800_BATCH)
+    env = make_env(cfg)
+    eng_a = SelfPlayEngine(env, cfg, net_a, eval_mode=True, device="cuda", seed=seed)
+    eng_b = SelfPlayEngine(env, cfg, net_b, eval_mode=True, device="cuda", seed=seed + 1)
+    spec = eng_a.spec
+    n = spec.num_simulations
+    v2 = eng_a.use_tree_kernel_v2
+    if (n, spec.max_nodes, spec.action_size) != (800, 801, 82) or spec.use_dirichlet_noise \
+            or spec.use_gumbel_noise or not spec.select_by_count or v2 != (algo == "az"):
+        fail(f"n=800 {algo}: spec {spec}, large-N loop {v2}")
+    what = f"{algo} n={n}"
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    states = eng_a.init_batch(N800_BATCH, gen)
+    states = _random_openings(env, states, N800_OPENING_PLIES,
+                              torch.Generator(device="cuda").manual_seed(seed * 1_000_003))
+    if v2:
+        check = TreeStepV2Check(keep_sims=N800_TIMED_SIMS, check_sims=set(N800_CHECKED_SIMS))
+        gcheck = GatherCheck(keep_call=n - 1)
+        eng_a.tree_step_v2, eng_a.gather_rows = check, gcheck
+    else:
+        check, gcheck = SimsChecked(N800_CHECKED_SIMS, N800_TIMED_SIMS), None
+        eng_a.tree_step = check
+    done = torch.zeros((N800_BATCH,), dtype=torch.bool, device="cuda")
+    score = torch.zeros((N800_BATCH,), dtype=torch.float32, device="cuda")
+    movers = (eng_a, eng_b)
+    ply_s = []
+    torch.cuda.synchronize()
+    zero_counts()
+    for ply in range(N800_PLIES):
+        legal = env.legal_mask(states)
+        t = time.perf_counter()
+        out = movers[(ply + N800_OPENING_PLIES) % 2].move(states, 1.0, gen)
+        torch.cuda.synchronize()
+        ply_s.append(time.perf_counter() - t)
+        if ply == 0:
+            eng_a.tree_step, eng_a.tree_step_v2, eng_a.gather_rows = (
+                fused_tree_step, fused_tree_step_v2, gather_rows)
+        rows = torch.arange(N800_BATCH, device="cuda")
+        if not bool((legal[rows, out.action.long()] | done).all()):
+            fail(f"{what}: an illegal action at ply {ply}")
+        states = select_states(done, states, out.states)
+        score = torch.where(done, score, out.eval_score)
+        done = done | out.done
+    launches = counts()
+    if v2:
+        want = {"tree_step": 0, "tree_step_rewards": 0, "tree_step_v2": N800_PLIES * (n + 1),
+                "gather_rows": N800_PLIES * n, "gather_rows_aligned": N800_PLIES * n}
+        ok = check.calls == len(N800_CHECKED_SIMS) and 801 in check.caps and gcheck.calls == n \
+            and gcheck.aligned_calls == n
+    else:
+        want = {"tree_step": N800_PLIES * (n + 1), "tree_step_rewards": 0, "tree_step_v2": 0,
+                "gather_rows": 0, "gather_rows_aligned": 0}
+        ok = check.calls == len(N800_CHECKED_SIMS) and not check.reward_calls
+    if launches != want or not ok:
+        fail(f"{what}: launches {launches}, expected {want}; {check.calls} tree steps checked")
+    outcome = score[done].cpu().numpy()
+    wld = (int((outcome > 0).sum()), int((outcome < 0).sum()), int((outcome == 0).sum()))
+    res = {"what": what, "launches": launches, "checked": check.calls, "err": check.max_abs_err,
+           "first_ply_s": ply_s[0], "ms_per_ply": 1e3 * sum(ply_s[1:]) / (N800_PLIES - 1),
+           "launches_per_ply": {k: v // N800_PLIES for k, v in launches.items() if v},
+           "wld": wld, "running": N800_BATCH - int(done.sum()), "timed": {}}
+    for sim in N800_TIMED_SIMS:
+        if v2:
+            kept = check.kept[sim]
+            res["timed"][sim] = (*tree_step_v2_numbers(kept, _timing_reps(kept[1])),
+                                 kept[1].visits.shape[1])
+        else:
+            kept = check.kept_at[sim]
+            res["timed"][sim] = (*tree_step_numbers(kept, _timing_reps(kept[1])),
+                                 kept[1].visits.shape[1])
+    res["warm_selection_ms"] = warm_selection_ms(
+        check.kept[N800_TIMED_SIMS[-1]] if v2 else check.kept_at[N800_TIMED_SIMS[-1]])
+    if v2:
+        from minizero_tpu_torch.ops.gather_rows import gather_rows_reference
+        from minizero_tpu_torch.ops.state_blob import blob_spec
+
+        blob, idx = eng_a._blob, gcheck.kept_idx
+        rows_idx = torch.arange(N800_BATCH, device="cuda")
+        state_w = blob_spec(states).width
+        byts = 2 * int((idx >= 0).sum()) * state_w * 4 + N800_BATCH * 4
+        res["b3"] = (time_events(lambda i: gather_rows(blob, idx), 50),
+                     time_events(lambda i: gather_rows_reference(blob, idx), 20, hold=False),
+                     byts / HBM_BYTES_PER_S * 1e3,
+                     time_events(lambda i: blob[rows_idx, idx.long()], 50),
+                     tuple(blob.shape), state_w)
+        res["b3_checked"], res["b3_err"] = gcheck.calls, gcheck.max_abs_err
+    del eng_a, eng_b
+    torch.cuda.empty_cache()
+    return res
+
+
+def n800_line(r: dict) -> str:
+    w, l, d = r["wld"]
+    line = (f"{r['what']} (go 9x9, 1x256 bf16, B={N800_BATCH}, {N800_OPENING_PLIES} opening "
+            f"plies): {N800_PLIES} plies, the first in {r['first_ply_s']:.2f} s ({r['checked']} "
+            f"tree steps at sims {list(N800_CHECKED_SIMS)} beside the plain version, max |diff| "
+            f"{r['err']:.3g}), then {r['ms_per_ply']:.1f} ms/ply; launches {r['launches']} "
+            f"({r['launches_per_ply']} a ply); finished W/L/D {w}/{l}/{d} of the first net, "
+            f"{r['running']} running")
+    kernel = "B2" if "b3" in r else "B1"
+    for sim, (k, p, bound, by, byts, _, depth, cap) in r["timed"].items():
+        line += (f"; {kernel} at sim {sim} ({'cap' if kernel == 'B2' else 'N'} {cap}, deepest "
+                 f"next path {depth}): {k:.4f} ms, plain {p:.2f} ms, bound {bound:.6f} ms ({by}, "
+                 f"{byts} bytes)")
+    line += f"; selection only, warm, at sim {N800_TIMED_SIMS[-1]}: {r['warm_selection_ms']:.4f} ms"
+    if "b3" in r:
+        k3, p3, b3, l3, shape, state_w = r["b3"]
+        line += (f"; B3 ({r['b3_checked']} gathers equal, blob {list(shape)}, state {state_w} "
+                 f"words) {k3:.5f} ms, plain {p3:.4f} ms, x[arange(B), idx] {l3:.5f} ms, bound "
+                 f"{b3:.6f} ms")
+    return line
+
+
+def phase12(zero_counts, counts) -> dict:
+    """12a az n=800: the trained ``runs/go9_az200_r3b`` net (iteration 25000,
+    ``minizero_tpu_torch/assets/``) against a seeded init, the pair of
+    ``runs/go9_az200_r3b.n800_pair.log``; 12b gaz n=800: two seeded inits.
+    Returns each path's numbers and its three kernel rows."""
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.models.factory import create_network, init_network
+    from minizero_tpu_torch.weights import from_jax_variables, load_variables_npz
+
+    out = {}
+    for key, algo, seed in (("az", "az", 120), ("gaz", "gaz", 121)):
+        cfg = default_config("go", **algorithm_preset(algo))
+        spec = make_env(cfg).spec
+        net_a = create_network(cfg, spec)
+        if algo == "az":
+            net_a.load_state_dict(from_jax_variables(
+                load_variables_npz(os.path.join(ROOT, TRAINED_NPZ)), hidden_hw=81))
+        else:
+            init_network(net_a, seed=seed + 1000)
+        net_b = init_network(create_network(cfg, spec), seed=seed)
+        t = time.perf_counter()
+        out[key] = n800_path(algo, net_a, net_b, seed, zero_counts, counts)
+        log(f"phase 12{'a' if algo == 'az' else 'b'} {n800_line(out[key])}; in "
+            f"{time.perf_counter() - t:.2f} s")
+    az, gaz = out["az"], out["gaz"]
+
+    def row(name, source, replaces, launches, err, numbers, library_ms=None):
+        k, p, bound, by = numbers[:4]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": k, "plain_ms": p,
+                "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
+
+    last = N800_TIMED_SIMS[-1]
+    out["rows"] = [
+        row(f"tree_step (gaz n=800, N=801, A=82, B={N800_BATCH})",
+            "minizero_tpu_torch/csrc/tree_step.cu", "minizero_tpu/ops/tree_kernel.py:136",
+            gaz["launches"]["tree_step"], gaz["err"], gaz["timed"][last]),
+        row("tree_step_v2 (az n=800, cap 801)", "minizero_tpu_torch/csrc/tree_step_v2.cu",
+            "minizero_tpu/ops/tree_kernel_v2.py:240", az["launches"]["tree_step_v2"], az["err"],
+            az["timed"][last]),
+        row("gather_rows (az n=800, 801 rows)", "minizero_tpu_torch/csrc/gather_rows.cu",
+            "minizero_tpu/ops/gather_rows.py:33", az["launches"]["gather_rows"], az["b3_err"],
+            (az["b3"][0], az["b3"][1], az["b3"][2], "bytes"), library_ms=az["b3"][3]),
+    ]
+    return out
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     if not torch.cuda.is_available():
@@ -2812,13 +3049,15 @@ def main() -> None:
     games_per_block.argtypes, games_per_block.restype = [], ctypes.c_int
     b3_games = games_per_block()
     for what, name, shape in (("tree_step (gaz/gmz: A=82, N=17; 128 threads)", "tree_step", (82, 17)),
+                              ("tree_step (gaz n=800: A=82, N=801; 128 threads)", "tree_step",
+                               (82, 801)),
                               ("tree_step (Atari: A=18, N=51; 128 threads)", "tree_step", (18, 51)),
                               *((f"tree_step, wide kernel (A={a}, N={n})", "tree_step", (a, n))
                                 for a, n in ((400, 17), (3040, 17), (3040, 201), (3040, 801))),
                               *((f"tree_step_v2, wide kernel (A={a}, cap {c})", "tree_step_v2", (a, c))
                                 for a, c in ((400, 51), (3040, 201))),
                               *((f"tree_step_v2 (A=82, cap {c}; 128 threads)", "tree_step_v2", (82, c))
-                                for c in (65, 129, AZ_SIMS + 1)),
+                                for c in (65, 129, AZ_SIMS + 1, 801)),
                               *((f"gather_rows, {path} path ({b3_games} games, {32 * b3_games} "
                                  f"threads)", "gather_rows", (flag,))
                                 for path, flag in (("aligned", 1), ("generic", 0)))):
@@ -3290,6 +3529,11 @@ def main() -> None:
     t = time.perf_counter()
     p11 = phase11(gaz_dir, p10["atari_zero"].pop("obs_records"), zero_counts, counts)
     log(f"phase 11 done in {time.perf_counter() - t:.2f} s")
+    # ---- 12. the README's strength protocol at n=800 -------------------------
+    t = time.perf_counter()
+    p12 = phase12(zero_counts, counts)
+    log(f"phase 12 done in {time.perf_counter() - t:.2f} s")
+    wide_rows += p12["rows"]
     families = {key: {"ms_per_move": r["ms_per_move"], "env_steps_per_s": r["steps_per_s"]}
                 for key, r in {**p8["paths"], **p9, **p10}.items()
                 if isinstance(r, dict) and "steps_per_s" in r}
@@ -3381,7 +3625,10 @@ def main() -> None:
         "profile_b1_ms": p11["profile"]["b1_ms"],
         "profile_device_ms_per_move": p11["profile"]["device_ms_per_move"],
         **{f"multi_device_{key}_{k}": p11[key][k] for key in ("nccl1", "gloo2", "tp2")
-           for k in ("seconds", "selfplay_s", "optimize_s")}}
+           for k in ("seconds", "selfplay_s", "optimize_s")},
+        **{f"n800_{key}_{k}": p12[key][k] for key in ("az", "gaz")
+           for k in ("ms_per_ply", "first_ply_s")},
+        "n800_az_wld_running": [*p12["az"]["wld"], p12["az"]["running"]]}
     print(json.dumps(result), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

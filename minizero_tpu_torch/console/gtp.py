@@ -10,6 +10,7 @@ blank line.
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 from typing import Callable, Dict, List, Optional
@@ -68,10 +69,23 @@ def env_string_to_action(env, coord: str) -> int:
 
 
 def render_board(env, state, game: int = 0) -> str:
-    """Text board of game ``game`` of a batched stone-board state
-    (reference per-env toString)."""
+    """Text board of game ``game`` of a batched state (reference per-env
+    toString): the env's own ``render`` where it has one; else, for a state
+    without a ``board``, its fields as the game's numpy arrays; else the
+    board as a numpy array when it is no n x n grid; else the n x n stone
+    board."""
+    if hasattr(env, "render"):
+        return env.render(state, game)
+    board = getattr(state, "board", None)
+    if board is None:
+        fields = ", ".join(f"{f.name}={getattr(state, f.name)[game].cpu().numpy()!r}"
+                           for f in dataclasses.fields(state))
+        return f"{type(state).__name__}({fields})"
+    b = board[game].cpu().numpy()
     n = env.spec.board_size
-    b = state.board[game].cpu().numpy().reshape(-1)[: n * n].reshape(n, n)
+    if b.size % (n * n) or b.size < n * n:
+        return str(b)
+    b = b.reshape(-1)[: n * n].reshape(n, n)
     sym = {0: ".", 1: "O", 2: "X", 3: "#"}
     # interactive terminals get the reference's colored board (stones bold
     # on a yellow board, go.cpp:329-344); pipes and GUIs get plain text

@@ -160,3 +160,79 @@ class DotsAndBoxesEnv(Env):
         t2 = (state.turn == 2)[:, None, None].expand(b, 1, cells)
         feats = torch.cat([planes, t1, t2], dim=1).to(torch.float32)
         return feats.permute(0, 2, 1).reshape(b, self.full, self.full, 90).contiguous()
+
+    # -- console ---------------------------------------------------------------
+
+    def render(self, state: DotsAndBoxesState, game: int = 0) -> str:
+        """Text board of game ``game`` (reference toStringDebug,
+        dotsandboxes.cpp:377-397): dots ``*``, lines ``-`` and ``|``, boxes
+        ``X`` (player 1) and ``O`` (player 2), top row first."""
+        b = state.board[game].cpu().numpy().reshape(self.full, self.full)
+        sym = {EMPTY_BOX: " ", P1_BOX: "X", P2_BOX: "O", NO_LINE: " ", DOT: "*"}
+        rows = []
+        for y in range(self.full - 1, -1, -1):
+            cells = []
+            for x in range(self.full):
+                v = int(b[y, x])
+                cells.append(("-" if y % 2 == 0 else "|") if v == LINE else sym.get(v, "?"))
+            rows.append(" ".join(cells))
+        return "\n".join(rows) + "\n"
+
+    def action_to_string(self, action_id: int) -> str:
+        """Line coordinate "A1A2": the two dots the line joins, columns
+        lettered without "I" (reference getCoordString,
+        dotsandboxes.cpp:68-92)."""
+        n = self.n
+        dots = n + 1
+        x2 = action_id % (2 * n + 1)
+        y2 = action_id // (2 * n + 1)
+        shift = y2 * dots
+
+        def dot_str(p):
+            x, y = p % dots, p // dots
+            return chr(x + ord("A") + (1 if x >= 8 else 0)) + str(y + 1)
+
+        if x2 < n:  # horizontal
+            return dot_str(x2 + shift) + dot_str(x2 + 1 + shift)
+        return dot_str(x2 - n + shift) + dot_str(x2 + 1 + shift)
+
+    def string_to_action(self, coord: str) -> int:
+        """The line between two adjacent dots given as "A1A2" (either
+        order, any case), -1 for a string that names none (reference
+        coordToActionID, dotsandboxes.cpp:11-66)."""
+        s = coord.strip().upper()
+        dots = self.n + 1
+
+        def parse(buf):
+            if not buf or not buf[0].isalpha():
+                return -1
+            x = ord(buf[0]) - ord("A") - (1 if buf[0] > "I" else 0)
+            try:
+                y = int(buf[1:]) - 1
+            except ValueError:
+                return -1
+            if x >= dots or y >= dots or x < 0 or y < 0:
+                return -1
+            return x + dots * y
+
+        if len(s) == 4:
+            a, b = s[:2], s[2:]
+        elif len(s) == 5:
+            mid = 3 if s[2].isdigit() else 2
+            a, b = s[:mid], s[mid:]
+        elif len(s) == 6:
+            a, b = s[:3], s[3:]
+        else:
+            return -1
+        fp, dp = parse(a), parse(b)
+        if fp == -1 or dp == -1:
+            return -1
+        if fp > dp:
+            fp, dp = dp, fp
+        diff = dp - fp
+        if diff not in (1, dots):
+            return -1
+        level = fp // dots
+        fp -= level * dots
+        dp -= level * dots
+        return (fp if diff == 1 else dp - 1) + level * (2 * dots - 1)

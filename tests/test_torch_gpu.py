@@ -1017,6 +1017,28 @@ def test_register_tree_step_at_801_nodes_matches_plain(regime):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["tree_step", "tree_step_v2"])
+def test_register_tree_steps_at_the_n800_protocol_shapes_match_plain(kernel):
+    """The shapes of the README's n=800 protocol at its batch (B = 96, as
+    ``scripts/n800_pair.py`` plays min(games, 96) games in lock-step), A =
+    82: B1's register kernel on N = 801 node trees in the board regime
+    (Gumbel root over 16 candidates, tied leaves, halving ticks), and B2's
+    register kernel staged 65 -> 129 -> 257 -> 513 -> 801 on random leaves,
+    a third terminal; every step against the plain version."""
+    _need_card()
+    from minizero_tpu_torch.ops._build import kernel_attributes
+
+    if kernel == "tree_step":
+        assert kernel_attributes("tree_step", 82, 801)["dynamic_smem"] == 75_008
+        trees, m0, depth = _wide_b1_search(82, 800, "board", 96, 62, dev="cuda")
+        assert depth >= 2 and int(trees.gumbel_sample_size.max()) < m0
+        assert trees.visits[:, 0].tolist() == [801.0] * 96
+    else:
+        assert kernel_attributes("tree_step_v2", 82, 801)["dynamic_smem"] == 67_296
+        assert _wide_b2_search(82, 800, 96, 63, dev="cuda") > 0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("algo", ["gaz", "gmz"])
 def test_train_step_on_card_matches_cpu(algo):
     """3 SGD steps of the AlphaZero or MuZero (K=5) train step on the card
