@@ -53,16 +53,20 @@ Phases:
      records parsed back, the logs, a checkpoint reloaded into a fresh
      loop; games/s, env-steps/s, the ``[SelfPlay Timing]`` split, SGD ms
      per step (CUDA events, steps 11-500), checkpoint size and times, peak
-     device memory; 6b the same for Gumbel MuZero (K=5); 6c the train step
-     on the card against the CPU (TF32 off) and a fixed full-width batch
-     whose loss falls; 6d the native record codec against the plain
-     writer on 64 of the iteration's games;
+     device memory; 6e a fresh loop's ``resume()`` on that run directory:
+     the replay window rebuilt from the records, its features replayed on
+     the card, equal to the loop's byte for byte, with the same step,
+     network and optimizer state; 6b the same for Gumbel MuZero (K=5, 200
+     SGD steps); 6c the train step on the card against the CPU (TF32 off)
+     and a fixed full-width batch whose loss falls; 6d the native record
+     codec against the plain writer on 64 of the iteration's games;
   7. eval through the CLI (``-mode eval`` on phase 6's gaz run): its
      iteration-1 checkpoint against its bootstrap one, 1024 games at
      B=1024 on the synchronized path, B1 beside its plain version over the
      first 16 plies, W/L/D, Elo, ``eval.csv``, plies, ms per ply, games/s,
-     B1 launches; a self-match of the iteration-1 net (rotation off, two
-     random opening plies) whose wins must split evenly; 7b the GTP console
+     B1 launches; a self-match of the iteration-1 net (256 games at
+     B=256, rotation off, two random opening plies) whose wins must split
+     evenly; 7b the GTP console
      (``-mode console`` as a subprocess, a script of ``load_model``,
      ``play``, five ``genmove``, ``pv``, ``tree_string``, ``showboard``,
      ``final_score``) plain, with a think time limit and with think batches
@@ -142,14 +146,14 @@ Phases:
  12. the README's strength protocol at n=800 (``scripts/n800_pair.py``:
      800 simulations, the most visited action, no noise, eval mode, 4
      uniform opening plies, 96 games in lock-step), Go 9x9 at 1 x 256 in
-     two eval engines as ``play_match`` builds them, each path 8 searched
+     two eval engines as ``play_match`` builds them, each path 4 searched
      plies after the openings: 12a az n=800, the trained az n=200 net of
      ``minizero_tpu_torch/assets/`` against a seeded init (B2 staged 65 ->
      ... -> 801, B3 over the [96, 801, 700] blob), 12b gaz n=800 between
      two seeded inits (B1 on [96, 801, 82] trees, sequential halving of 16
      candidates); the first ply's tree steps at simulations 0, 1, 2, 100,
      400 and 800 (and every row gather) beside the plain versions, exact
-     launch counts over the 8 plies, every action legal, ms per ply, the
+     launch counts over the 4 plies, every action legal, ms per ply, the
      games finished so far, and B1 and B2 timed at simulations 100, 400
      and 800 beside their plain versions and bounds, B3 beside
      ``x[arange(B), idx]``.
@@ -210,6 +214,8 @@ FLOAT_ATOL = 1e-5
 ZERO_GAMES = 1024
 ZERO_BATCH = 1024
 ZERO_STEPS = 500
+# phase 6b's Gumbel MuZero iteration takes fewer steps (~61 ms each)
+GMZ_ZERO_STEPS = 200
 SGD_TIMED_FROM = 11
 CODEC_GAMES = 64
 TRAIN_ATOL = 1e-4
@@ -219,6 +225,8 @@ TRAIN_ATOL = 1e-4
 # EVAL_CHECKED_PLIES plies of the match; the console's time limit (s)
 EVAL_GAMES = 1024
 EVAL_CHECKED_PLIES = 16
+# the self-match's games (at B=256: its time is its plies', host-bound)
+SELF_MATCH_GAMES = 256
 EVAL_PLIES_PER_CHECK = 16
 CONSOLE_TIME_LIMIT = 0.01
 SP_GAMES = 128
@@ -1006,9 +1014,19 @@ def same_tensors(a, b) -> bool:
     return a == b
 
 
+def as_reloaded(policy) -> np.ndarray:
+    """Self-play's f16 policy rows as a record reloads them: the parser
+    (``selfplay/record.py``, as the JAX package's) divides each row by its
+    float32 sum and rounds back to f16, which moves a few rows by one f16
+    step."""
+    p = np.asarray(policy, np.float32)
+    return (p / p.sum(-1, keepdims=True)).astype(np.float16)
+
+
 def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int = 0,
                    run_dir: str = "", env_name: str = "go", games: int = ZERO_GAMES,
-                   steps: int = ZERO_STEPS, parallel: int = BATCH) -> dict:
+                   steps: int = ZERO_STEPS, parallel: int = BATCH,
+                   resume_check: bool = False) -> dict:
     """One iteration of the zero loop at the flagship's widths: ``ZeroLoop``
     on the card (``algorithm_preset(algo)``, ``env_name`` (Go 9x9 by
     default) at its default size, 1 x 256, 1024 games in
@@ -1022,7 +1040,11 @@ def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int =
     records) for later phases; by default it goes to a temporary directory
     removed at the end. ``games``, ``steps`` and ``parallel`` (games in
     lock-step) cut another run's recipe. The records are parsed back to
-    their games' actions and rewards. Returns the numbers and the config."""
+    their games' actions and rewards. With ``resume_check``, a fresh loop
+    on the run directory calls ``resume()``: the newest checkpoint, and the
+    replay window rebuilt from the records with the features replayed on
+    the card, equal to the loop's byte for byte (the policy targets as a
+    record reloads them). Returns the numbers and the config."""
     import contextlib
 
     from minizero_tpu_torch import native
@@ -1123,6 +1145,29 @@ def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int =
                 and same_tensors(loop.state.optimizer.state_dict(),
                                  fresh.state.optimizer.state_dict())):
             fail(f"{what}: the reloaded checkpoint differs from the loop's state")
+        if resume_check:
+            again = ZeroLoop(cfg, run_dir)
+            t = time.perf_counter()
+            start = again.resume()
+            torch.cuda.synchronize()
+            out["resume_s"] = time.perf_counter() - t
+            rebuilt = again.buffer.games
+            same = [a.features.dtype == b.features.dtype and a.features.shape == b.features.shape
+                    and a.features.tobytes() == b.features.tobytes()
+                    and np.array_equal(a.actions, b.actions)
+                    and np.array_equal(as_reloaded(a.policy), b.policy)
+                    and a.result == b.result for a, b in zip(loop.buffer.games, rebuilt)]
+            if not (start == 1 and again.state.step == steps and len(rebuilt) == games
+                    and again.buffer.num_data == loop.buffer.num_data and all(same)
+                    and same_tensors(loop.network.state_dict(), again.network.state_dict())
+                    and same_tensors(loop.state.optimizer.state_dict(),
+                                     again.state.optimizer.state_dict())):
+                fail(f"{what}: resume() gave iteration {start}, step {again.state.step}, "
+                     f"{len(rebuilt)} games ({sum(same)} equal to the loop's) and "
+                     f"{again.buffer.num_data} positions against {loop.buffer.num_data}")
+            out["resume_bytes"] = sum(g.features.nbytes for g in rebuilt)
+            again.close()
+            del again, rebuilt
         # one more SGD step of the loop under the profiler, on a fresh
         # sample of its replay buffer (the loop's own sampling and upload)
         from minizero_tpu_torch.zero.loop import _to_device
@@ -1330,8 +1375,8 @@ def eval_phase(run_dir: str, cfg_path: str, zero_counts, counts) -> dict:
     against its bootstrap one, EVAL_GAMES games in lock-step at B=1024 on
     the synchronized path, the first EVAL_CHECKED_PLIES plies' tree steps
     beside their plain version; then a self-match of the iteration-1 net,
-    rotation off, two random opening plies, whose result must split
-    evenly. Launch counters are 0 just before each and read just after."""
+    SELF_MATCH_GAMES games, rotation off, two random opening plies, whose
+    result must split evenly. Launch counters are 0 just before each and read just after."""
     import minizero_tpu_torch.selfplay.engine as engine_mod
     from minizero_tpu_torch.config import default_config
     from minizero_tpu_torch.eval.match import load_checkpoint_variables, play_match
@@ -1367,11 +1412,11 @@ def eval_phase(run_dir: str, cfg_path: str, zero_counts, counts) -> dict:
     torch.cuda.synchronize()
     t = time.perf_counter()
     r = play_match(cfg.replace(actor_use_random_rotation_features=False), net, net,
-                   num_games=EVAL_GAMES, seed=5, opening_random_plies=2)
+                   num_games=SELF_MATCH_GAMES, seed=5, opening_random_plies=2)
     torch.cuda.synchronize()
     out["self_seconds"] = time.perf_counter() - t
     b1 = counts()["tree_step"]
-    if r.games != EVAL_GAMES or r.p1_wins != r.p2_wins or b1 % per_check:
+    if r.games != SELF_MATCH_GAMES or r.p1_wins != r.p2_wins or b1 % per_check:
         fail(f"eval self-match: {r} ({b1} B1 launches); a net against itself with "
              f"mirrored openings must split its wins evenly")
     out.update(self_result=r, self_plies=b1 // (sims + 1), ckpt=ckpt)
@@ -2780,7 +2825,7 @@ N800_PROTOCOL = ("actor_num_simulation=800:actor_select_action_by_count=true:"
                  "actor_use_gumbel_noise=false")
 N800_BATCH = 96
 N800_OPENING_PLIES = 4
-N800_PLIES = 8
+N800_PLIES = 4
 # the first searched ply's tree steps at these simulations run beside the
 # plain version (a plain step on an 801-node tree is slow); those at
 # N800_TIMED_SIMS are kept and timed
@@ -3393,15 +3438,19 @@ def main() -> None:
     gaz_dir = tempfile.mkdtemp(prefix="zero_gaz_")
     atexit.register(shutil.rmtree, gaz_dir, ignore_errors=True)
     gaz_zero = zero_iteration("gaz", 11, zero_counts, counts, codec_games=CODEC_GAMES,
-                              run_dir=gaz_dir)
+                              run_dir=gaz_dir, resume_check=True)
     log(f"phase 6 zero iteration (gaz n=16, 1x256, B={BATCH}; TF32 convolutions): "
         f"{zero_line(gaz_zero)}; phase in {time.perf_counter() - t:.2f} s")
     n_codec, t_native, t_plain, codec_bytes = gaz_zero["codec"]
+    log(f"phase 6e resume: a fresh ZeroLoop's resume() on the gaz run: iteration 1, step "
+        f"{ZERO_STEPS}, {ZERO_GAMES} games reloaded, their features replayed on the card "
+        f"({gaz_zero['resume_bytes']} bytes) equal to the loop's byte for byte, network and "
+        f"optimizer state equal, in {gaz_zero['resume_s']:.2f} s")
     log(f"phase 6d codec: native library loaded; {n_codec} games ({codec_bytes} bytes of "
         f"records) equal to the plain writer's and to the loop's lines; native "
         f"{1e3 * t_native:.1f} ms, plain {1e3 * t_plain:.1f} ms")
     t = time.perf_counter()
-    gmz_zero = zero_iteration("gmz", 12, zero_counts, counts)
+    gmz_zero = zero_iteration("gmz", 12, zero_counts, counts, steps=GMZ_ZERO_STEPS)
     log(f"phase 6b zero iteration (gmz n=16, K=5, 1x256, B={BATCH}; TF32 convolutions): "
         f"{zero_line(gmz_zero)}; phase in {time.perf_counter() - t:.2f} s")
 
@@ -3428,7 +3477,7 @@ def main() -> None:
         f"(= {ev['plies']} plies x 17), the first {ev['checked']} beside the plain version "
         f"(max |diff| {ev['check_err']:.3g}); self-match (rotation off, 2 random opening "
         f"plies): {ev['self_result']}, {ev['self_plies']} plies in {ev['self_seconds']:.2f} s: "
-        f"{self_ms_per_ply:.1f} ms/ply, {EVAL_GAMES / ev['self_seconds']:.1f} games/s")
+        f"{self_ms_per_ply:.1f} ms/ply, {SELF_MATCH_GAMES / ev['self_seconds']:.1f} games/s")
     t = time.perf_counter()
     con = console_phase(cfg_path, ev["ckpt"])
     b1c = console_b1_check(cfg_path, ev["ckpt"])
@@ -3595,13 +3644,13 @@ def main() -> None:
         "eval_ms_per_ply": eval_ms_per_ply, "eval_games_per_s": EVAL_GAMES / ev["seconds"],
         "eval_plies": ev["plies"], "eval_b1_launches": ev["launches"],
         "eval_self_match_ms_per_ply": self_ms_per_ply,
-        "eval_self_match_games_per_s": EVAL_GAMES / ev["self_seconds"],
+        "eval_self_match_games_per_s": SELF_MATCH_GAMES / ev["self_seconds"],
         "console_ms_per_genmove": con["plain"]["ms"],
         "console_timed_ms_per_genmove": con["timed"]["ms"],
         "console_think_batch_ms_per_genmove": con["think-batch"]["ms"],
         "console_b1_ms": b1c["ms"], "console_b1_plain_ms": b1c["plain_ms"],
         "console_b1_bound_ms": b1c["bound_ms"], "sp_seconds": om["sp_s"],
-        "sp_b1_launches": om["sp_launches"],
+        "sp_b1_launches": om["sp_launches"], "zero_gaz_resume_s": gaz_zero["resume_s"],
         **{f"zero_{algo}_{key}": val for algo, z in (("gaz", gaz_zero), ("gmz", gmz_zero))
            for key, val in (("sgd_steps_per_s", 1e3 / z["ms_per_step"]),
                             ("ms_per_sgd_step", z["ms_per_step"]),

@@ -1389,7 +1389,8 @@ def test_eval_match_on_card_matches_cpu(monkeypatch):
 
 def test_port_and_chip_smoke_import_without_jax():
     """``minizero_tpu_torch`` (every module, the MuZero ones and the tools by
-    name) and ``chip_smoke`` import with jax, flax, msgpack, the JAX
+    name), ``chip_smoke`` and ``scripts/zero_recipe_torch.py`` import with
+    jax, flax, msgpack, the JAX
     package, matplotlib and PIL blocked (the card's machine has none of
     them: the tools import their drawing libraries where they draw)."""
     code = "\n".join([
@@ -1418,6 +1419,11 @@ def test_port_and_chip_smoke_import_without_jax():
         "        'minizero_tpu_torch.parallel.distributed', 'minizero_tpu_torch.parallel.watchdog',",
         "        'minizero_tpu_torch.__main__'} <= set(names), names",
         "import chip_smoke",
+        "import importlib.util",
+        "spec = importlib.util.spec_from_file_location('recipe', 'scripts/zero_recipe_torch.py')",
+        "recipe = importlib.util.module_from_spec(spec)",
+        "spec.loader.exec_module(recipe)",
+        "assert recipe.recipe_config().zero_num_games_per_iteration == 2000",
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'minizero_tpu') and sys.modules[k] is not None",
         "               for k in list(sys.modules))",
     ])

@@ -85,8 +85,19 @@ def test_init_network_is_seeded_and_torch_default():
     torch.testing.assert_close(out["policy"].sum(-1), torch.ones(2))
 
 
-def test_trained_az200_weights_match_the_jax_checkpoint():
-    """The trained Go 9x9 az n=200 net that the port reads from
+# the trained nets the port reads from ``minizero_tpu_torch/assets/``: the az
+# n=200 run's last checkpoint, and the Gumbel AlphaZero run's (the reference
+# recipe, ``runs/go9_gaz_full``) iterations 0 and 25
+TRAINED_ASSETS = {
+    "go9_az200_r3b_iter25000": ("go9_az200_r3b/model/weight_iter_25000.ckpt", "az", 200),
+    "go9_gaz_full_iter0": ("go9_gaz_full/model/weight_iter_0.ckpt", "gaz", 16),
+    "go9_gaz_full_iter12500": ("go9_gaz_full/model/weight_iter_12500.ckpt", "gaz", 16),
+}
+
+
+@pytest.mark.parametrize("asset", sorted(TRAINED_ASSETS))
+def test_trained_az200_weights_match_the_jax_checkpoint(asset):
+    """A trained Go 9x9 net that the port reads from
     ``minizero_tpu_torch/assets/`` (exported by
     ``scripts/export_trained_weights.py``) against the JAX net loaded from
     its ``.ckpt`` under ``runs/``: the same variables, and the same forward
@@ -101,9 +112,10 @@ def test_trained_az200_weights_match_the_jax_checkpoint():
     from minizero_tpu_torch.weights import load_variables_npz
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    ckpt = os.path.join(root, "runs", "go9_az200_r3b", "model", "weight_iter_25000.ckpt")
-    npz = os.path.join(root, "minizero_tpu_torch", "assets", "go9_az200_r3b_iter25000.npz")
-    jcfg = jdefault("go", **jpreset("az")).replace(actor_num_simulation=200)
+    ckpt_path, preset, sims = TRAINED_ASSETS[asset]
+    ckpt = os.path.join(root, "runs", ckpt_path)
+    npz = os.path.join(root, "minizero_tpu_torch", "assets", f"{asset}.npz")
+    jcfg = jdefault("go", **jpreset(preset)).replace(actor_num_simulation=sims)
     jenv = jmake_env(jcfg)
     jnet = jcreate(jcfg, jenv.spec)
     variables = load_checkpoint_variables(ckpt, jcfg, jnet, jenv.spec)
@@ -119,7 +131,7 @@ def test_trained_az200_weights_match_the_jax_checkpoint():
             node = node[k.key]
         np.testing.assert_array_equal(node, np.asarray(leaf))
 
-    cfg = default_config("go", **algorithm_preset("az"), actor_num_simulation=200)
+    cfg = default_config("go", **algorithm_preset(preset)).replace(actor_num_simulation=sims)
     env = make_env(cfg)
     net = create_network(cfg, env.spec)
     net.load_state_dict(from_jax_variables(loaded, hidden_hw=81))
