@@ -57,9 +57,12 @@ Phases:
      the replay window rebuilt from the records, its features replayed on
      the card, equal to the loop's byte for byte, with the same step,
      network and optimizer state; 6b the same for Gumbel MuZero (K=5, 200
-     SGD steps); 6c the train step on the card against the CPU (TF32 off)
-     and a fixed full-width batch whose loss falls; 6d the native record
-     codec against the plain writer on 64 of the iteration's games;
+     SGD steps); 6f a fresh loop's ``resume()`` on 6b's run: the window
+     equal to the loop's byte for byte, and one ``sample_muzero`` batch of
+     each buffer from the same ``RandomState`` equal; 6c the train step on
+     the card against the CPU (TF32 off) and a fixed full-width batch whose
+     loss falls; 6d the native record codec against the plain writer on 64
+     of the iteration's games;
   7. eval through the CLI (``-mode eval`` on phase 6's gaz run): its
      iteration-1 checkpoint against its bootstrap one, 1024 games at
      B=1024 on the synchronized path, B1 beside its plain version over the
@@ -1023,6 +1026,25 @@ def as_reloaded(policy) -> np.ndarray:
     return (p / p.sum(-1, keepdims=True)).astype(np.float16)
 
 
+def same_muzero_batches(loop_buffer, resumed_buffer, batch: int, seed: int = 6):
+    """One ``sample_muzero`` batch of ``batch`` from each buffer, each from
+    ``RandomState(seed)``: equal, the loop's policy targets inside its
+    games as a record reloads them (``as_reloaded``; past a game's end both
+    are uniform). True, or the first key that differs."""
+    a = loop_buffer.sample_muzero(batch, np.random.RandomState(seed))
+    b = resumed_buffer.sample_muzero(batch, np.random.RandomState(seed))
+    lengths = np.array([g.length for g in loop_buffer.games])
+    idx = a["sampled_index"]
+    inside = idx[:, 1:] + np.arange(a["policy"].shape[1]) < lengths[idx[:, 0]][:, None]
+    a["policy"] = np.where(inside[..., None], as_reloaded(a["policy"]), a["policy"])
+    if sorted(a) != sorted(b):
+        return f"keys {sorted(a)} against {sorted(b)}"
+    for key in sorted(a):
+        if a[key].dtype != b[key].dtype or not np.array_equal(a[key], b[key]):
+            return key
+    return True
+
+
 def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int = 0,
                    run_dir: str = "", env_name: str = "go", games: int = ZERO_GAMES,
                    steps: int = ZERO_STEPS, parallel: int = BATCH,
@@ -1044,7 +1066,9 @@ def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int =
     on the run directory calls ``resume()``: the newest checkpoint, and the
     replay window rebuilt from the records with the features replayed on
     the card, equal to the loop's byte for byte (the policy targets as a
-    record reloads them). Returns the numbers and the config."""
+    record reloads them); for MuZero also one ``sample_muzero`` batch of
+    each buffer from the same ``RandomState`` (``same_muzero_batches``).
+    Returns the numbers and the config."""
     import contextlib
 
     from minizero_tpu_torch import native
@@ -1166,6 +1190,10 @@ def zero_iteration(algo: str, seed: int, zero_counts, counts, codec_games: int =
                      f"{len(rebuilt)} games ({sum(same)} equal to the loop's) and "
                      f"{again.buffer.num_data} positions against {loop.buffer.num_data}")
             out["resume_bytes"] = sum(g.features.nbytes for g in rebuilt)
+            if loop.is_muzero:
+                same = same_muzero_batches(loop.buffer, again.buffer, ZERO_BATCH)
+                if same is not True:
+                    fail(f"{what}: the resumed window's sample_muzero batch differs: {same}")
             again.close()
             del again, rebuilt
         # one more SGD step of the loop under the profiler, on a fresh
@@ -3450,9 +3478,18 @@ def main() -> None:
         f"records) equal to the plain writer's and to the loop's lines; native "
         f"{1e3 * t_native:.1f} ms, plain {1e3 * t_plain:.1f} ms")
     t = time.perf_counter()
-    gmz_zero = zero_iteration("gmz", 12, zero_counts, counts, steps=GMZ_ZERO_STEPS)
+    gmz_dir = tempfile.mkdtemp(prefix="zero_gmz_")
+    atexit.register(shutil.rmtree, gmz_dir, ignore_errors=True)
+    gmz_zero = zero_iteration("gmz", 12, zero_counts, counts, steps=GMZ_ZERO_STEPS,
+                              run_dir=gmz_dir, resume_check=True)
     log(f"phase 6b zero iteration (gmz n=16, K=5, 1x256, B={BATCH}; TF32 convolutions): "
         f"{zero_line(gmz_zero)}; phase in {time.perf_counter() - t:.2f} s")
+    log(f"phase 6f resume: a fresh ZeroLoop's resume() on the gmz run: iteration 1, step "
+        f"{GMZ_ZERO_STEPS}, {ZERO_GAMES} games reloaded, their features replayed on the card "
+        f"({gmz_zero['resume_bytes']} bytes) equal to the loop's byte for byte, network and "
+        f"optimizer state equal, one sample_muzero batch of {ZERO_BATCH} equal to the loop's, "
+        f"in {gmz_zero['resume_s']:.2f} s")
+    shutil.rmtree(gmz_dir, ignore_errors=True)
 
     # 6c. the train step on the card against the CPU, TF32 off
     torch.backends.cudnn.allow_tf32 = False

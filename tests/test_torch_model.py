@@ -17,7 +17,7 @@ from minizero_tpu_torch.config import algorithm_preset, default_config
 from minizero_tpu_torch.envs import make_env
 from minizero_tpu_torch.models.alphazero import AlphaZeroNetwork
 from minizero_tpu_torch.models.factory import create_network, init_network
-from minizero_tpu_torch.weights import from_jax_variables
+from minizero_tpu_torch.weights import from_jax_muzero_variables, from_jax_variables
 
 ATOL = 1e-4
 
@@ -92,6 +92,8 @@ TRAINED_ASSETS = {
     "go9_az200_r3b_iter25000": ("go9_az200_r3b/model/weight_iter_25000.ckpt", "az", 200),
     "go9_gaz_full_iter0": ("go9_gaz_full/model/weight_iter_0.ckpt", "gaz", 16),
     "go9_gaz_full_iter12500": ("go9_gaz_full/model/weight_iter_12500.ckpt", "gaz", 16),
+    "go9_gmz_r4_iter0": ("go9_gmz_r4/model/weight_iter_0.ckpt", "gmz", 16),
+    "go9_gmz_r4_iter12500": ("go9_gmz_r4/model/weight_iter_12500.ckpt", "gmz", 16),
 }
 
 
@@ -101,7 +103,10 @@ def test_trained_az200_weights_match_the_jax_checkpoint(asset):
     ``minizero_tpu_torch/assets/`` (exported by
     ``scripts/export_trained_weights.py``) against the JAX net loaded from
     its ``.ckpt`` under ``runs/``: the same variables, and the same forward
-    pass within 1e-4 on random boards."""
+    pass within 1e-4 on random boards; for a MuZero net (``gmz``) the
+    initial inference and one recurrent inference step on random actions,
+    the hidden states too. The name is kept from its first asset, the
+    az n=200 net."""
     import os
 
     from minizero_tpu.config import algorithm_preset as jpreset
@@ -134,10 +139,24 @@ def test_trained_az200_weights_match_the_jax_checkpoint(asset):
     cfg = default_config("go", **algorithm_preset(preset)).replace(actor_num_simulation=sims)
     env = make_env(cfg)
     net = create_network(cfg, env.spec)
-    net.load_state_dict(from_jax_variables(loaded, hidden_hw=81))
+    muzero = preset == "gmz"
+    convert = from_jax_muzero_variables if muzero else from_jax_variables
+    net.load_state_dict(convert(loaded, hidden_hw=81))
     net.eval()
     with torch.no_grad():
         got = net(torch.from_numpy(feats))
-    for key in ("policy", "policy_logit", "value"):
-        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), rtol=0, atol=ATOL,
-                                   err_msg=key)
+    pairs = [(got, want)]
+    if muzero:
+        actions = np.random.default_rng(26).integers(0, 82, 8).astype(np.int32)
+        jplanes = jax.vmap(jenv.action_features)(jnp.asarray(actions))
+        with torch.no_grad():
+            rec = net.recurrent_inference(got["hidden_state"],
+                                          env.action_features(torch.from_numpy(actions)))
+        pairs.append((rec, jnet.apply(variables, want["hidden_state"], jplanes,
+                                      method=jnet.recurrent_inference)))
+    for step, (g, w) in enumerate(pairs):
+        keys = ("policy", "policy_logit", "value") + (("hidden_state",) if muzero else ())
+        for key in keys:
+            value = g[key].permute(0, 2, 3, 1) if key == "hidden_state" else g[key]
+            np.testing.assert_allclose(value.numpy(), np.asarray(w[key]), rtol=0, atol=ATOL,
+                                       err_msg=f"{key}, step {step}")

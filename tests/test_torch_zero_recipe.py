@@ -1,32 +1,42 @@
-"""The reference training recipe on the port (``scripts/zero_recipe_torch.py``),
-held against the JAX package on the CPU.
+"""The reference training recipes on the port (``scripts/zero_recipe_torch.py``:
+``gaz``, the JAX run ``runs/go9_gaz_full``, and ``gmz``, ``runs/go9_gmz_r4``),
+held against the JAX package on the CPU, each case for both recipes.
 
-* The script's config is ``runs/go9_gaz_full.cfg`` as both packages parse
-  it, but for the iterations it runs.
-* The JAX run's iteration-0 and iteration-25 nets, exported to
+* The script's config is the JAX run's (``runs/go9_gaz_full.cfg``; the
+  ``config`` entry of ``runs/go9_gmz_r4/model/weight_iter_12500.ckpt``) as
+  both packages parse it, but for the iterations it runs.
+* The JAX run's step-0 and step-12,500 nets, exported to
   ``minizero_tpu_torch/assets/``, play the first plies of ``play_match``
-  on the port as the JAX engine plays them: float32, rotation off, root
-  visits and actions exact, the root children's Q within 2e-4 and the root
-  value within 1e-4 (``docs/Parity.md``), completed-Q targets within 2e-3.
+  on the port as the JAX engine plays them (``gmz`` after the ladder's 4
+  uniform opening plies): float32, rotation off, root visits and actions
+  exact, the root children's Q within 2e-4 and the root value within 1e-4
+  (``docs/Parity.md``), completed-Q targets within 2e-3.
 * A run of the CLI's ``-mode zero`` to iteration 2 and a second call to
-  iteration 4 (TicTacToe, a window of 2 iterations): after each iteration
-  the window holds the games of the last two iterations' record files, as a
-  JAX ``ReplayBuffer`` fed the same records holds them; the second call
-  reloads iterations 1-2 with the feature planes self-play stored (the
-  policy targets as the record parser renormalizes them), and the network,
-  optimizer state and step the first call ended with.
+  iteration 4 (TicTacToe, a window of 2 iterations; AlphaZero, and Gumbel
+  MuZero with K=5): after each iteration the window holds the games of the
+  last two iterations' record files, as a JAX ``ReplayBuffer`` fed the
+  same records holds them; the second call reloads iterations 1-2 with the
+  feature planes self-play stored (the policy targets as the record parser
+  renormalizes them), and the network, optimizer state and step the first
+  call ended with.
 * The script's CPU form prints its lines.
+* The script's ``unroll_check`` on a window with evicted games and games
+  shorter than K: the flat caches' ``sample_muzero`` equals the per-record
+  branch's and the JAX buffer's, and a stale cache fails the check.
 """
 
 import copy
 import importlib.util
 import json
 import os
+import pickle
 import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import minizero_tpu_torch.eval.match as tmatch
 from minizero_tpu.config import default_config as j_default
@@ -38,13 +48,14 @@ from minizero_tpu.search import mcts as jmcts
 from minizero_tpu.selfplay.engine import SelfPlayEngine as JEngine
 from minizero_tpu.selfplay.record import game_record_from_string as j_record
 from minizero_tpu_torch.__main__ import main
-from minizero_tpu_torch.config import default_config
+from minizero_tpu_torch.config import algorithm_preset, default_config
 from minizero_tpu_torch.envs import make_env
 from minizero_tpu_torch.models.factory import create_network
 from minizero_tpu_torch.search import mcts
 from minizero_tpu_torch.selfplay.engine import SelfPlayEngine
 from minizero_tpu_torch.selfplay.record import game_record_from_string
-from minizero_tpu_torch.weights import from_jax_variables, load_variables_npz
+from minizero_tpu_torch.weights import (from_jax_muzero_variables, from_jax_variables,
+                                        load_variables_npz)
 from minizero_tpu_torch.zero import loop as tloop
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -54,7 +65,9 @@ from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(ROOT, "scripts", "zero_recipe_torch.py")
-RUN = os.path.join(ROOT, "runs", "go9_gaz_full")
+RUNS = {"gaz": os.path.join(ROOT, "runs", "go9_gaz_full"),
+        "gmz": os.path.join(ROOT, "runs", "go9_gmz_r4")}
+RECIPES = sorted(RUNS)
 
 
 def _script():
@@ -64,9 +77,18 @@ def _script():
     return mod
 
 
-def test_recipe_config_is_the_jax_runs():
-    text = open(RUN + ".cfg").read()
-    ours = _script().recipe_config()
+def _jax_run_config(recipe):
+    """The JAX run's config text: gaz's ``.cfg``; gmz's checkpoint entry."""
+    if recipe == "gaz":
+        return open(RUNS[recipe] + ".cfg").read()
+    with open(os.path.join(RUNS[recipe], "model", "weight_iter_12500.ckpt"), "rb") as f:
+        return pickle.load(f)["config"]
+
+
+@pytest.mark.parametrize("recipe", RECIPES)
+def test_recipe_config_is_the_jax_runs(recipe):
+    text = _jax_run_config(recipe)
+    ours = _script().recipe_config(recipe=recipe)
     port, jax_ = (default_config("go").load_string(text, sep="\n"),
                   j_default("go").load_string(text, sep="\n"))
     runs_own = {"zero_start_iteration", "zero_end_iteration"}
@@ -74,8 +96,12 @@ def test_recipe_config_is_the_jax_runs():
     assert fields == set(vars(ours)) == set(vars(jax_))
     for key in sorted(fields - runs_own):
         assert getattr(ours, key) == getattr(port, key) == getattr(jax_, key), key
-    assert (ours.zero_start_iteration, ours.zero_end_iteration) == (0, 100)
-    assert jax_.zero_start_iteration == 10
+    # the JAX runs were resumed at iterations 10 and 8; the script starts
+    # at 0 and passes its end on the command line
+    assert (ours.zero_start_iteration, ours.zero_end_iteration) == (0, {"gaz": 100,
+                                                                      "gmz": 50}[recipe])
+    assert jax_.zero_start_iteration == {"gaz": 10, "gmz": 8}[recipe]
+    assert ours.nn_type_name == {"gaz": "alphazero", "gmz": "muzero"}[recipe]
 
 
 def _root_children(visits, mean, cidx):
@@ -85,27 +111,33 @@ def _root_children(visits, mean, cidx):
             np.where(has, np.take_along_axis(mean, idx, 1), 0.0))
 
 
-def test_exported_nets_play_the_jax_plies_through_play_match(monkeypatch):
+@pytest.mark.parametrize("recipe", RECIPES)
+def test_exported_nets_play_the_jax_plies_through_play_match(recipe, monkeypatch):
     """The port's ``play_match`` (4 games, 6 plies a round, the JAX run's
-    iteration-25 net as A against its iteration-0 net) and the JAX engine
-    driven as its synchronized match drives it: the same searches, ply by
-    ply, in both colour rounds."""
-    cfg = _script().recipe_config().replace(actor_use_random_rotation_features=False,
-                                            zero_num_parallel_games=4)
+    step-12,500 net as A against its step-0 net; gmz after the ladder's 4
+    uniform opening plies) and the JAX engine driven as its synchronized
+    match drives it: the same searches, ply by ply, in both colour
+    rounds, from the openings the port drew."""
+    script = _script()
+    cfg = script.recipe_config(recipe=recipe).replace(actor_use_random_rotation_features=False,
+                                                      zero_num_parallel_games=4)
+    opening = script.OPENING_PLIES[recipe]
     jcfg = j_default("go").load_string(cfg.to_string(), sep="\n")
     assert jcfg.to_string() == cfg.to_string()
     spec = make_env(cfg).spec
+    convert = from_jax_muzero_variables if recipe == "gmz" else from_jax_variables
     nets = {}
     for step in (12500, 0):
         nets[step] = create_network(cfg, spec)
-        nets[step].load_state_dict(from_jax_variables(load_variables_npz(os.path.join(
-            ROOT, "minizero_tpu_torch", "assets", f"go9_gaz_full_iter{step}.npz")), hidden_hw=81))
-    searches, decisions = [], []
+        nets[step].load_state_dict(convert(load_variables_npz(script.jax_net_path(recipe, step)),
+                                           hidden_hw=81))
+    searches, decisions, openings = [], [], []
 
     class Recording(SelfPlayEngine):
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **{**kwargs, "use_bf16": False})
             assert not self.spec.use_gumbel_noise and not self.use_rotation
+            assert self.is_muzero == (recipe == "gmz")
 
         def _search(self, states, turns, feats, generator):
             trees = super()._search(states, turns, feats, generator)
@@ -116,24 +148,51 @@ def test_exported_nets_play_the_jax_plies_through_play_match(monkeypatch):
             decisions.append(super()._decide(trees, temperature, generator))
             return decisions[-1]
 
+    random_openings = tmatch._random_openings
+
+    def recorded_openings(env, states, plies, generator):
+        step, taken = env.step, []
+
+        def recorded_step(s, a):
+            taken.append(a.numpy().copy())
+            return step(s, a)
+
+        env.step = recorded_step
+        try:
+            return random_openings(env, states, plies, generator)
+        finally:
+            del env.step
+            openings.append(taken)
+
     monkeypatch.setattr(tmatch, "SelfPlayEngine", Recording)
     monkeypatch.setattr(tmatch, "PLIES_PER_CHECK", 6)
+    monkeypatch.setattr(tmatch, "_random_openings", recorded_openings)
     r = tmatch.play_match(cfg, nets[12500], nets[0], num_games=4, seed=1001, max_moves=6,
-                          device="cpu")
+                          opening_random_plies=opening, device="cpu")
     assert (r.p1_wins, r.p2_wins, r.draws) == (0, 0, 4)  # no game ends in 6 plies
     assert len(searches) == len(decisions) == 12
+    assert len(openings) == (2 if opening else 0)
+    if opening:
+        # both colour rounds start from the same openings, distinct games
+        assert all(len(o) == opening for o in openings)
+        np.testing.assert_array_equal(np.stack(openings[0]), np.stack(openings[1]))
+        assert len({tuple(col) for col in np.stack(openings[0]).T}) > 1
 
     jenv = j_make_env(jcfg)
     jnet = j_create_network(jcfg, jenv.spec)
-    jvars = {step: j_load_checkpoint(os.path.join(RUN, "model", f"weight_iter_{step}.ckpt"),
+    jvars = {step: j_load_checkpoint(os.path.join(RUNS[recipe], "model",
+                                                  f"weight_iter_{step}.ckpt"),
                                      jcfg, jnet, jenv.spec) for step in (12500, 0)}
     jeng = JEngine(jenv, jcfg, jnet, eval_mode=True, use_bf16=False)
-    assert not jeng.spec.use_gumbel_noise
+    assert not jeng.spec.use_gumbel_noise and jeng.is_muzero == (recipe == "gmz")
     jstep = jax.vmap(jenv.step)
     ply_searches = iter(zip(searches, decisions))
-    # A plays Player 1 in the first round, Player 2 in the second
-    for movers in ((12500, 0), (0, 12500)):
+    # A plays Player 1 in the first round, Player 2 in the second; after
+    # an even number of opening plies Player 1 moves first
+    for round_, movers in enumerate(((12500, 0), (0, 12500))):
         js = jax_batch(jenv, 4)
+        for actions in (openings[round_] if opening else ()):
+            js = jstep(js, jnp.asarray(actions))
         for ply in range(6):
             step = movers[ply % 2]
             (net, states, trees), (action, target, root, _) = next(ply_searches)
@@ -159,23 +218,28 @@ def test_exported_nets_play_the_jax_plies_through_play_match(monkeypatch):
             js = jstep(js, jaction)
 
 
-def _tiny(**over):
-    return dict(env_name="tictactoe", nn_num_blocks=1, nn_num_hidden_channels=8,
-                nn_num_value_hidden_channels=8, actor_num_simulation=8, learner_batch_size=16,
-                learner_training_step=4, learner_training_display_step=2,
-                zero_num_games_per_iteration=8, zero_num_parallel_games=8, zero_replay_buffer=2,
-                **over)
+def _tiny(recipe="gaz"):
+    # gaz: the AlphaZero loop; gmz: Gumbel MuZero with K=5 unroll steps
+    algo = {} if recipe == "gaz" else dict(algorithm_preset("gmz"), actor_gumbel_sample_size=8,
+                                            learner_muzero_unrolling_step=5)
+    return {**algo, **dict(
+        env_name="tictactoe", nn_num_blocks=1, nn_num_hidden_channels=8,
+        nn_num_value_hidden_channels=8, actor_num_simulation=8, learner_batch_size=16,
+        learner_training_step=4, learner_training_display_step=2, zero_num_games_per_iteration=8,
+        zero_num_parallel_games=8, zero_replay_buffer=2)}
 
 
-def test_window_and_state_survive_a_resume_across_cli_calls(tmp_path, monkeypatch):
+@pytest.mark.parametrize("recipe", RECIPES)
+def test_window_and_state_survive_a_resume_across_cli_calls(recipe, tmp_path, monkeypatch):
     """``-mode zero`` to iteration 2, then a second call to iteration 4, with
     a window of 2 iterations: after every iteration the window is the last
     two record files' games (as a JAX ``ReplayBuffer`` fed those records in
     order holds them); the second call rebuilds iterations 1-2 exactly and
-    continues from the first call's network, optimizer state and step."""
-    conf = ":".join(f"{k}={v}" for k, v in _tiny().items())
+    continues from the first call's network, optimizer state (the
+    momentum) and step."""
+    conf = ":".join(f"{k}={v}" for k, v in _tiny(recipe).items())
     run_dir = str(tmp_path / "run")
-    jcfg = j_default("tictactoe", **{k: v for k, v in _tiny().items() if k != "env_name"})
+    jcfg = j_default("tictactoe", **{k: v for k, v in _tiny(recipe).items() if k != "env_name"})
     jbuffer = JReplayBuffer(jcfg, j_make_env(jcfg).spec)
     a_size = make_env(default_config("tictactoe")).spec.action_size
     loops, after_resume = [], []
@@ -215,6 +279,8 @@ def test_window_and_state_survive_a_resume_across_cli_calls(tmp_path, monkeypatc
                      f"{conf}:zero_end_iteration={end}"], device="cpu") == 0
     first, second = loops
     assert first.state.step == 8 and second.state.step == 16
+    assert first.is_muzero == second.is_muzero == (recipe == "gmz")
+    assert "momentum_buffer" in str(first.state.optimizer.state_dict())
     (_, _, _, nothing), (start, state, step, window) = after_resume
     assert nothing == [] and start == 2 and step == 8
     _assert_same_tensors(state, _state(first), "resumed state")
@@ -232,9 +298,10 @@ def test_window_and_state_survive_a_resume_across_cli_calls(tmp_path, monkeypatc
     assert log.count("[Resume] iteration 2, 16 games reloaded") == 1
 
 
-def test_the_script_prints_its_lines_on_the_cpu(tmp_path):
+@pytest.mark.parametrize("recipe", RECIPES)
+def test_the_script_prints_its_lines_on_the_cpu(recipe, tmp_path):
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, SCRIPT, str(tmp_path / "run"), "cpu"],
+    out = subprocess.run([sys.executable, SCRIPT, recipe, str(tmp_path / "run"), "cpu"],
                          capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     lines = [json.loads(ln) for ln in out.stdout.splitlines()]
@@ -244,13 +311,78 @@ def test_the_script_prints_its_lines_on_the_cpu(tmp_path):
         assert ln["games"] == 4 and ln["buffer_games"] == 4 * ln["iteration"]
         assert np.isfinite(list(ln["losses"].values())).all()
         assert ln["length_min"] <= ln["length_avg"] <= ln["length_max"]
+        if recipe == "gmz":
+            # board-game MuZero trains no reward; the unroll checked each
+            # iteration (K=5 past a few games' ends)
+            assert ln["losses"]["loss_reward"] == 0
+            unroll = ln["unroll"]
+            assert unroll["positions"] == 8 and unroll["window_games"] == ln["buffer_games"]
+            assert unroll["games_unchanged"] == ln["buffer_games"]
+        else:
+            assert "loss_reward" not in ln["losses"] and "unroll" not in ln
     (resumed,) = [ln for ln in lines if ln.get("resumed_iteration") == 1]
     assert resumed["resume_games"] == 4 and resumed["games_equal"] and resumed["state_equal"]
-    assert [ln["match"] for ln in lines if "match" in ln] == ["a", "b"]
+    assert ("unroll" in resumed) == (recipe == "gmz")
+    ladder = ["r1", "r2"] if recipe == "gmz" else []
+    assert [ln["match"] for ln in lines if "match" in ln] == ladder + ["a", "b"]
     summary = lines[-1]
-    assert summary["step"] == 8 and summary["device"] == "cpu"
+    assert summary["step"] == 8 and summary["device"] == "cpu" and summary["recipe"] == recipe
     assert summary["resume_lines"] == ["[Resume] iteration 1, 4 games reloaded"]
     assert all(sum(wld) == 2 for wld in summary["matches"].values())
+
+
+def _game(rng, length, a_size=9, channels=4):
+    from minizero_tpu_torch.learner.replay import GameRecord
+
+    policy = rng.random((length, a_size)).astype(np.float32)
+    return GameRecord(actions=rng.integers(0, a_size, length).astype(np.int32),
+                      policy=(policy / policy.sum(1, keepdims=True)).astype(np.float16),
+                      values=rng.uniform(-1, 1, length).astype(np.float32),
+                      rewards=np.zeros(length, np.float32),
+                      features=rng.integers(0, 256, (length, 3, 3, channels)).astype(np.uint8),
+                      result=float(rng.choice([-1.0, 0.0, 1.0])))
+
+
+def test_unroll_check_holds_the_flat_branch_to_the_per_record_branch():
+    """``unroll_check`` on a MuZero window (TicTacToe, K=5, a window of 2
+    iterations of 6 games) that has evicted games and games shorter than
+    K: the flat caches, rebuilt after each iteration, give the per-record
+    branch's targets and the JAX buffer's batch draw for draw; a cache
+    left stale fails the check."""
+    from minizero_tpu.learner.replay import GameRecord as JGameRecord
+    from minizero_tpu_torch.learner.replay import ReplayBuffer
+
+    script = _script()
+    over = dict(algorithm_preset("gmz"), learner_muzero_unrolling_step=5,
+                zero_num_games_per_iteration=6, zero_replay_buffer=2)
+    cfg = default_config("tictactoe", **over)
+    jcfg = j_default("tictactoe", **over)
+    buffer = ReplayBuffer(cfg, make_env(cfg).spec)
+    jbuffer = JReplayBuffer(jcfg, j_make_env(jcfg).spec)
+    rng = np.random.default_rng(19)
+    counts = []
+    for iteration in range(4):
+        for length in rng.integers(1, 10, 6):
+            rec = _game(rng, int(length))
+            jbuffer.add_game(JGameRecord(**{k: getattr(rec, k) for k in (
+                "actions", "policy", "values", "rewards", "features", "result")}))
+            rec.added_digest = script.record_digest(rec)
+            buffer.add_game(rec)
+        counts.append(script.unroll_check(buffer, 64, seed=iteration))
+        want = jbuffer.sample_muzero(64, np.random.RandomState(iteration))
+        got = buffer.sample_muzero(64, np.random.RandomState(iteration))
+        assert sorted(got) == sorted(want)
+        for key in got:
+            np.testing.assert_array_equal(got[key], want[key], key)
+    assert len(buffer) == 12  # 24 games added: the first 12 evicted
+    assert all(c["window_games"] == c["games_unchanged"] == min(6 * (i + 1), 12)
+               for i, c in enumerate(counts))
+    # games shorter than K were drawn, and draws unrolled past their ends
+    assert all(c["short_games"] > 0 and c["past_end"] > 0 for c in counts)
+    # a flat cache that no longer matches the records fails the check
+    buffer._flat_actions[:] = (buffer._flat_actions + 1) % 9
+    with pytest.raises(AssertionError, match="actions inside the games"):
+        script.unroll_check(buffer, 64)
 
 
 def test_a_reload_renormalizes_policy_rows_as_the_jax_parser_does():
