@@ -289,21 +289,17 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank: int, argv, world: int, port: int, device) -> None:
-    """One spawned rank: the launcher's variables, one torch thread, then
-    the CLI again, which joins the group."""
-    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
-                      MASTER_PORT=str(port))
-    torch.set_num_threads(1)
-    main(argv, device=device)
-
-
 def spawn_ranks(argv, world: int, device=None) -> None:
     """Run the CLI as ``world`` local ranks (one a card; ``device="cpu"``
     for gloo ranks on the CPU) with a rendezvous on a free local port;
-    returns when every rank has finished, and raises if one failed."""
-    torch.multiprocessing.spawn(_rank_main, args=(list(argv), world, _free_port(), device),
+    returns when every rank has finished, and raises if one failed. The
+    ranks start in ``parallel.distributed.spawned_rank``: a spawned process
+    finds a function by its module's name, and this module runs as
+    ``__main__`` under ``python -m``, where a rank could not find one of
+    its own."""
+    from minizero_tpu_torch.parallel.distributed import spawned_rank
+
+    torch.multiprocessing.spawn(spawned_rank, args=(list(argv), world, _free_port(), device),
                                 nprocs=world, join=True)
 
 

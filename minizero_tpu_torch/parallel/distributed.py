@@ -9,8 +9,9 @@ rank playing its slice of the games on its own card, and the train step's
 gradient averaged over the ranks after every backward pass.
 
 - ``init_distributed`` joins the process group that a launcher
-  (``python -m torch.distributed.run``) describes in the environment, and
-  is a no-op otherwise;
+  (``python -m torch.distributed.run``, or the CLI's own spawn through
+  ``spawned_rank``) describes in the environment, and is a no-op
+  otherwise;
 - ``ShardedSelfPlay`` plays a rank's slice of the self-play batch; no
   collective runs inside a move;
 - ``global_batch_from_local`` / ``global_stacked_from_local``: each rank
@@ -71,6 +72,19 @@ def init_distributed(backend: Optional[str] = None, device=None) -> Tuple[int, i
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method="env://")
     return dist.get_rank(), dist.get_world_size()
+
+
+def spawned_rank(rank: int, argv, world: int, port: int, device) -> None:
+    """One rank that ``__main__.spawn_ranks`` started: the launcher's
+    variables (``LOCAL_RANK = rank``, so rank ``r`` takes card ``r``), one
+    torch thread, then the CLI again, which joins the group."""
+    from minizero_tpu_torch.__main__ import main
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    torch.set_num_threads(1)
+    main(argv, device=device)
 
 
 def all_gather_rows(mesh: Mesh, row: np.ndarray) -> np.ndarray:

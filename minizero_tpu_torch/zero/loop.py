@@ -37,7 +37,10 @@ likewise), the self-play statistics are gathered over the rows, each rank
 samples ``batch // dp`` rows from its own replay buffer for the
 data-parallel train step, rank 0 writes the checkpoint, and every
 collective outside a move runs under the collective watchdog
-(``zero_collective_timeout``). With ``mp > 1`` the ranks of an ``mp`` group
+(``zero_collective_timeout``). A resume on as many rows reloads each row's
+own shard; on another number (another count of cards, or one process) it
+deals every shard's games over the rows, so no game of the window is
+dropped. With ``mp > 1`` the ranks of an ``mp`` group
 play the same games and sample the same rows (one ``dp`` row, as JAX
 replicates its batch over ``mp``); its rank 0 alone writes the row's
 files, so a ``dp = 1`` run writes what one process writes, and the
@@ -56,6 +59,7 @@ import gzip
 import json
 import os
 import pickle
+import re
 import time
 import uuid
 from typing import Dict, List
@@ -615,11 +619,45 @@ class ZeroLoop:
         feats = torch.stack(rows).cpu().numpy()  # [L, B, H, W, C']
         return [np.ascontiguousarray(feats[: lens[i], i]) for i in range(len(action_lists))]
 
+    def _window_lines(self, sgf_dir: str, iteration: int) -> List[str]:
+        """The record lines of ``iteration`` that this rank reloads. An
+        iteration played by as many ``dp`` rows as this run has gives each
+        row its own shard. Played by another number (a run resumed on
+        another number of cards), its shards' games, in shard order, are
+        dealt out over the rows, game ``i`` to row ``i % dp``: every rank
+        count rebuilds the whole window, as the JAX package's one-host run
+        does from its one record file (``minizero_tpu/zero/loop.py:241-244``).
+        A shard is ``{it}.sgf`` (row 0) or ``{it}.p{row}.sgf``, either
+        gzipped as ``.sgf.gz``."""
+        shards: Dict[int, str] = {}
+        pattern = re.compile(rf"{iteration}(?:\.p(\d+))?\.sgf(?:\.gz)?")
+        # a shard's .sgf.gz sorts first here, so its .sgf, where both exist, wins
+        for name in sorted(os.listdir(sgf_dir), reverse=True):
+            m = pattern.fullmatch(name)
+            if m:
+                shards[int(m.group(1) or 0)] = name
+        if sorted(shards) == list(range(self.num_procs)):
+            names, deal = [shards[self.pid]], False
+        else:
+            names, deal = [shards[k] for k in sorted(shards)], True
+        lines: List[str] = []
+        for name in names:
+            path = os.path.join(sgf_dir, name)
+            with (gzip.open(path, "rt") if name.endswith(".gz") else open(path)) as f:
+                lines += [ln for ln in f if ln.strip()]
+        if deal and shards:
+            self.log(f"[Resume] sgf/{iteration}: {len(shards)} shard(s) of {len(lines)} games "
+                     f"dealt over {self.num_procs} row(s)")
+            lines = lines[self.pid::self.num_procs]
+        return lines
+
     def resume(self) -> int:
         """Continue mode (reference zero-server.sh:116-128): load the latest
         checkpoint and rebuild the replay window from the last
         ``zero_replay_buffer`` iterations' record files (``.sgf`` or
-        ``.sgf.gz``). Returns the iteration to continue from."""
+        ``.sgf.gz``; ``_window_lines``: a rank's own shard, or its share of
+        every shard when the run had another number of ranks). Returns the
+        iteration to continue from."""
         model_dir = os.path.join(self.run_dir, "model")
         ckpts = sorted(
             (f for f in os.listdir(model_dir) if f.endswith(".ckpt")),
@@ -643,37 +681,29 @@ class ZeroLoop:
         lo = max(1, start_iter - self.cfg.zero_replay_buffer + 1)
         records: List[GameRecord] = []
         for it in range(lo, start_iter + 1):
-            path = os.path.join(sgf_dir, f"{it}{self.shard}.sgf")  # this rank's shard
-            if os.path.exists(path):
-                opener = open(path)
-            elif os.path.exists(path + ".gz"):
-                opener = gzip.open(path + ".gz", "rt")
-            else:
-                continue
-            with opener:
-                for line in opener:
-                    line = line.strip()
-                    if not line:
-                        continue
-                    tags, rec = game_record_from_string(line, self.env.spec.action_size)
-                    if self.is_host_env:
-                        # Atari: frames from the OBS tag, the episodic-life
-                        # cuts from LL (a host env cannot be replayed on the
-                        # device). OBS holds the record's own positions only,
-                        # so a resumed continuation chunk zero-pads its
-                        # pre-chunk history (frame_lead 0), the JAX loop's
-                        # documented approximation
-                        if "OBS" not in tags:
-                            continue  # stripped records are not trainable
-                        rec.features = None
-                        rec.frames = unpack_observations(tags["OBS"])
-                        rec.frame_lead = 0
-                        rec.lead_actions = None
-                        if "LL" in tags:
-                            rec.lives_lost = np.asarray([c == "1" for c in tags["LL"]], bool)
-                        self.buffer.add_game(rec)
-                        self.frame_window.add(rec)
-                    records.append(rec)
+            for line in self._window_lines(sgf_dir, it):
+                line = line.strip()
+                if not line:
+                    continue
+                tags, rec = game_record_from_string(line, self.env.spec.action_size)
+                if self.is_host_env:
+                    # Atari: frames from the OBS tag, the episodic-life
+                    # cuts from LL (a host env cannot be replayed on the
+                    # device). OBS holds the record's own positions only,
+                    # so a resumed continuation chunk zero-pads its
+                    # pre-chunk history (frame_lead 0), the JAX loop's
+                    # documented approximation
+                    if "OBS" not in tags:
+                        continue  # stripped records are not trainable
+                    rec.features = None
+                    rec.frames = unpack_observations(tags["OBS"])
+                    rec.frame_lead = 0
+                    rec.lead_actions = None
+                    if "LL" in tags:
+                        rec.lives_lost = np.asarray([c == "1" for c in tags["LL"]], bool)
+                    self.buffer.add_game(rec)
+                    self.frame_window.add(rec)
+                records.append(rec)
         if self.is_host_env:
             self.frame_window.retain(self.buffer.games)
         else:

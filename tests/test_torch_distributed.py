@@ -11,9 +11,11 @@ with one torch thread.
   parameters after the step;
 - 2-rank self-play with noise, rotation and sampling off plays the same
   actions as the plain engine on the same game slices;
-- a 2-rank ``ZeroLoop`` iteration through ``-mode zero -multi_device``
-  (``spawn_ranks``): record shards, a checkpoint from rank 0 alone, the
-  ``(2 hosts)`` line, and ``resume`` of each rank's shard;
+- a 2- and a 4-rank ``ZeroLoop`` iteration through ``-mode zero
+  -multi_device`` (``spawn_ranks``): record shards, a checkpoint from rank
+  0 alone, the ``(N hosts)`` line, and ``resume`` of each rank's shard;
+- a resume on another number of ranks (2 -> 1 -> 4) reloads every game of
+  the window, dealt out over the ranks;
 - a world-1 gloo loop writes the plain loop's records, byte for byte;
 - a wedged peer makes rank 0 exit with the watchdog's code within 60 s
   (JAX ``tests/test_multihost.py:136-168``).
@@ -280,33 +282,90 @@ sys.path.insert(0, sys.argv[1])
 from minizero_tpu_torch.__main__ import spawn_ranks
 if __name__ == "__main__":
     spawn_ranks(["-mode", "zero", "-multi_device", "-run_dir", sys.argv[2],
-                 "-conf_str", sys.argv[3]], 2, device="cpu")
+                 "-conf_str", sys.argv[3]], int(sys.argv[4]), device="cpu")
     print("SPAWN_DONE", flush=True)
 """
 
 
-def test_two_rank_zero_loop_shards_checkpoint_and_resume(tmp_path):
+def _spawn_loop(run_dir: str, end: int, world: int) -> None:
+    """``-mode zero -multi_device`` to iteration ``end`` as ``world`` gloo
+    ranks (``spawn_ranks``), in a process of its own."""
+    (rc, out), = _run_ranks(_SPAWN, lambda r: [ROOT, run_dir, _loop_conf(end), str(world)],
+                            world=1)
+    assert rc == 0 and "SPAWN_DONE" in out, out[-4000:]
+
+
+def _shard(rank: int) -> str:
+    return "" if rank == 0 else f".p{rank}"
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_two_rank_zero_loop_shards_checkpoint_and_resume(tmp_path, world):
     run_dir = str(tmp_path / "run")
     for end in (1, 2):
-        (rc, out), = _run_ranks(_SPAWN, lambda r: [ROOT, run_dir, _loop_conf(end)], world=1)
-        assert rc == 0 and "SPAWN_DONE" in out, out[-4000:]
+        _spawn_loop(run_dir, end, world)
     sgf = os.path.join(run_dir, "sgf")
-    assert sorted(os.listdir(sgf)) == ["1.p1.sgf", "1.sgf", "2.p1.sgf", "2.sgf"]
-    for name in os.listdir(sgf):  # ceil(8 / 2) games a rank an iteration
-        assert len(open(os.path.join(sgf, name)).read().splitlines()) == 4, name
+    assert sorted(os.listdir(sgf)) == sorted(f"{it}{_shard(r)}.sgf" for it in (1, 2)
+                                             for r in range(world))
+    for name in os.listdir(sgf):  # ceil(8 / world) games a rank an iteration
+        assert len(open(os.path.join(sgf, name)).read().splitlines()) == 8 // world, name
     assert sorted(os.listdir(os.path.join(run_dir, "model"))) == [
         "weight_iter_0.ckpt", "weight_iter_4.ckpt", "weight_iter_8.ckpt"]
-    log0 = open(os.path.join(run_dir, "Training.log")).read()
-    log1 = open(os.path.join(run_dir, "Training.p1.log")).read()
-    for log in (log0, log1):
-        assert "[Iteration] 1: self-play 8 games" in log and "2 hosts)" in log
-        # the second run read back its own shard: 4 games
-        assert "[Resume] iteration 1, 4 games reloaded" in log
-    for name in ("op.log", "op.p1.log", "perf.jsonl", "perf.p1.jsonl"):
-        assert os.path.getsize(os.path.join(run_dir, name)) > 0, name
+    for r in range(world):
+        log = open(os.path.join(run_dir, f"Training{_shard(r)}.log")).read()
+        assert "[Iteration] 1: self-play 8 games" in log and f"{world} hosts)" in log
+        # the second run read back its own shard
+        assert f"[Resume] iteration 1, {8 // world} games reloaded" in log
+        assert "dealt over" not in log
+        for name in ("op", "perf"):
+            ext = "jsonl" if name == "perf" else "log"
+            assert os.path.getsize(os.path.join(run_dir, f"{name}{_shard(r)}.{ext}")) > 0
     # the ranks applied the same updates: their op.log lines agree
     strip = lambda p: [x.split("] ", 1)[1] for x in open(os.path.join(run_dir, p))]  # noqa: E731
-    assert strip("op.log") == strip("op.p1.log") and len(strip("op.log")) == 4
+    assert len(strip("op.log")) == 4
+    for r in range(1, world):
+        assert strip(f"op{_shard(r)}.log") == strip("op.log"), r
+
+
+def _games(path: str):
+    return [ln for ln in open(path).read().splitlines() if ln.strip()]
+
+
+def test_resume_at_another_number_of_ranks(tmp_path):
+    """A run resumed on another number of ranks rebuilds its whole window:
+    two ranks' shards reload whole into one process, and the records of
+    two ranks and of one process are dealt out over four ranks, game i to
+    rank i % 4 (before, each rank reloaded only a file of its own name:
+    one process kept rank 0's half, and ranks 2 and 3 reloaded nothing)."""
+    from minizero_tpu_torch.__main__ import main
+
+    run_dir = str(tmp_path / "run")
+    sgf = os.path.join(run_dir, "sgf")
+    _spawn_loop(run_dir, 1, 2)
+    assert main(["-mode", "zero", "-run_dir", run_dir, "-conf_str", _loop_conf(2)],
+                device="cpu") == 0
+    log = open(os.path.join(run_dir, "Training.log")).read()
+    assert "[Resume] sgf/1: 2 shard(s) of 8 games dealt over 1 row(s)" in log
+    assert "[Resume] iteration 1, 8 games reloaded" in log
+    assert len(_games(os.path.join(sgf, "2.sgf"))) == 8
+    _spawn_loop(run_dir, 3, 4)
+    it1 = _games(os.path.join(sgf, "1.sgf")) + _games(os.path.join(sgf, "1.p1.sgf"))
+    it2 = _games(os.path.join(sgf, "2.sgf"))
+    for r in range(4):
+        log = open(os.path.join(run_dir, f"Training{_shard(r)}.log")).read()
+        assert "[Resume] sgf/2: 1 shard(s) of 8 games dealt over 4 row(s)" in log, r
+        assert "[Resume] iteration 2, 4 games reloaded" in log, r
+        assert len(_games(os.path.join(sgf, f"3{_shard(r)}.sgf"))) == 2, r
+    # what each rank reloaded: the games i with i % 4 == r of each iteration
+    from minizero_tpu_torch.config import default_config
+    from minizero_tpu_torch.zero.loop import ZeroLoop
+
+    reader = ZeroLoop(default_config("tictactoe", **TINY), str(tmp_path / "reader"), device="cpu")
+    for r in range(4):
+        reader.pid, reader.num_procs = r, 4
+        got = reader._window_lines(sgf, 1) + reader._window_lines(sgf, 2)
+        assert [g.strip() for g in got] == it1[r::4] + it2[r::4], r
+    reader.close()
 
 
 def test_world_one_gloo_loop_writes_the_plain_loops_records(tmp_path):

@@ -1389,7 +1389,8 @@ def test_eval_match_on_card_matches_cpu(monkeypatch):
 
 def test_port_and_chip_smoke_import_without_jax():
     """``minizero_tpu_torch`` (every module, the MuZero ones and the tools by
-    name), ``chip_smoke`` and ``scripts/zero_recipe_torch.py`` import with
+    name), ``chip_smoke``, ``scripts/zero_recipe_torch.py`` and
+    ``scripts/multi_card_torch.py`` import with
     jax, flax, msgpack, the JAX
     package, matplotlib and PIL blocked (the card's machine has none of
     them: the tools import their drawing libraries where they draw)."""
@@ -1424,6 +1425,10 @@ def test_port_and_chip_smoke_import_without_jax():
         "recipe = importlib.util.module_from_spec(spec)",
         "spec.loader.exec_module(recipe)",
         "assert recipe.recipe_config().zero_num_games_per_iteration == 2000",
+        "spec = importlib.util.spec_from_file_location('multi_card', 'scripts/multi_card_torch.py')",
+        "multi_card = importlib.util.module_from_spec(spec)",
+        "spec.loader.exec_module(multi_card)",
+        "assert multi_card.WORLD == 4 and multi_card.config().learner_batch_size == 1024",
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'minizero_tpu') and sys.modules[k] is not None",
         "               for k in list(sys.modules))",
     ])
@@ -1637,6 +1642,112 @@ def test_split_heads_train_step_on_two_gloo_ranks_matches_plain_on_card(tmp_path
         assert rk["fc"] == (41, 2 * 81) and rk["device"].startswith("cuda"), rk["fc"]
         for key, want in ranks[0]["model"].items():
             assert torch.equal(rk["model"][key], want), key
+    for key in m_plain:
+        torch.testing.assert_close(ranks[0]["metrics"][key], m_plain[key].cpu(), rtol=0,
+                                   atol=1e-5, msg=key)
+    for key, want in net.state_dict().items():
+        torch.testing.assert_close(ranks[0]["model"][key], want.cpu(), rtol=0, atol=1e-5,
+                                   msg=key)
+
+
+# one of four NCCL ranks, one a card, joined through the launcher's
+# variables (init_distributed): argv = repo, the job file (overrides, batch,
+# rotations), the output file
+_DP4_NCCL_RANK = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+job_file, out_file = sys.argv[2], sys.argv[3]
+torch.backends.cudnn.allow_tf32 = False
+from minizero_tpu_torch.config import default_config
+from minizero_tpu_torch.envs import make_env
+from minizero_tpu_torch.learner.train import init_train_state
+from minizero_tpu_torch.models.factory import create_network, init_network
+from minizero_tpu_torch.parallel.distributed import init_distributed, make_sharded_train_step
+from minizero_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+
+rank, world = init_distributed()
+mesh = make_mesh()
+job = torch.load(job_file, weights_only=False)
+cfg = default_config("go", **job["over"])
+env = make_env(cfg)
+net = init_network(create_network(cfg, env.spec), seed=3).to(mesh.device)
+step = make_sharded_train_step(cfg, env, net, mesh)
+rows = batch_sharding(mesh, len(job["rotations"]))
+metrics = step(init_train_state(cfg, net), {k: v[rows] for k, v in job["batch"].items()},
+               rotations=job["rotations"][rows].to(mesh.device))
+torch.save({"metrics": {k: v.cpu() for k, v in metrics.items()},
+            "model": {k: v.cpu() for k, v in net.state_dict().items()},
+            "backend": dist.get_backend(), "device": str(mesh.device),
+            "current": torch.cuda.current_device(), "world": world}, out_file)
+dist.destroy_process_group()
+print(f"RANK_{rank}_DONE", flush=True)
+"""
+
+
+@pytest.mark.gpu
+def test_four_nccl_ranks_train_step_matches_plain_on_card_zero(tmp_path):
+    """The dp-4 train step on four NCCL ranks, one a card (Go 9x9 gaz,
+    1 x 32, global batch 64, 16 rows a rank, TF32 off), equals the plain
+    step on card 0: metrics and parameters within 1e-5 after one step, the
+    four ranks bitwise equal. Needs four cards."""
+    _need_card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs four cards, {torch.cuda.device_count()} visible")
+    import socket
+
+    from minizero_tpu_torch.config import algorithm_preset, default_config
+    from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.learner.train import init_train_state, make_train_step
+    from minizero_tpu_torch.models.factory import create_network, init_network
+    from minizero_tpu_torch.utils.bitpack import pack_planes
+
+    over = dict(algorithm_preset("gaz"))
+    over.update(nn_num_hidden_channels=32, nn_num_value_hidden_channels=32)
+    cfg = default_config("go", **over)
+    env = make_env(cfg)
+    rng = np.random.default_rng(6)
+    b = 64
+    p = rng.random((b, env.spec.action_size))
+    batch = {"features": pack_planes(torch.from_numpy(rng.random((b, 9, 9, 18)) > 0.5)).numpy(),
+             "loss_scale": np.ones(b, np.float32), "value": rng.choice([-1.0, 1.0], b).astype(np.float32),
+             "policy": (p / p.sum(-1, keepdims=True)).astype(np.float16)}
+    rots = torch.from_numpy(rng.integers(0, 8, b))
+    job = str(tmp_path / "job.pt")
+    torch.save({"over": over, "batch": batch, "rotations": rots}, job)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    procs = [subprocess.Popen([sys.executable, "-c", _DP4_NCCL_RANK, ROOT, job,
+                               str(tmp_path / f"rank{r}.pt")], cwd=ROOT,
+                              env=dict(base, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="4",
+                                       MASTER_ADDR="localhost", MASTER_PORT=port),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(4)]
+    try:
+        outs = [pr.communicate(timeout=300)[0] for pr in procs]
+    finally:
+        for pr in procs:
+            pr.kill()
+    for r, (pr, out) in enumerate(zip(procs, outs)):
+        assert pr.returncode == 0 and f"RANK_{r}_DONE" in out, f"rank {r}:\n{out[-4000:]}"
+    ranks = [torch.load(str(tmp_path / f"rank{r}.pt")) for r in range(4)]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        net = init_network(create_network(cfg, env.spec), seed=3).to("cuda:0")
+        m_plain = make_train_step(cfg, env, net)(init_train_state(cfg, net), batch,
+                                                 rotations=rots.to("cuda:0"))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for r, rk in enumerate(ranks):
+        assert (rk["backend"], rk["device"], rk["current"], rk["world"]) == (
+            "nccl", f"cuda:{r}", r, 4), r
+        for key, want in ranks[0]["model"].items():
+            assert torch.equal(rk["model"][key], want), (r, key)
     for key in m_plain:
         torch.testing.assert_close(ranks[0]["metrics"][key], m_plain[key].cpu(), rtol=0,
                                    atol=1e-5, msg=key)

@@ -17,7 +17,12 @@ thread (``test_torch_distributed.py``'s ``_gloo_jobs``).
   layer split 8 -> 4) writes the plain loop's files, records byte for
   byte; its checkpoint is the one-process format (it loads into a plain
   ``ZeroLoop`` and ``eval.match.load_checkpoint_variables``, and equals the
-  plain loop's within 1e-5), and ``resume`` under mp = 2 splits it again.
+  plain loop's within 1e-5), and ``resume`` under mp = 2 splits it again;
+- the check of ``scripts/multi_card_torch.py`` part (d) at dp 2 x mp 2 on
+  four ranks: after each iteration a digest of each rank's games,
+  all-gathered over its ``mp`` group, is equal within the group, differs
+  between the ``dp`` rows, and differs within a group whose rank 1 lost a
+  game.
 """
 
 import copy
@@ -328,3 +333,67 @@ def test_mp2_resume_splits_the_checkpoint_again(loop_runs):
         for name, t in local.items():
             if not name.startswith("value_head.fc1."):
                 assert torch.equal(t, payload[name]), (r, name)
+
+
+# one rank of a dp 2 x mp 2 TicTacToe loop, two iterations, each followed by
+# scripts/multi_card_torch.py's mp-group check of the games just played
+_MP_GAMES_WORKER = r"""
+import importlib.util, os, pickle, sys
+import torch
+import torch.distributed as dist
+sys.path.insert(0, sys.argv[6])
+torch.set_num_threads(1)
+rank, world, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+spec = importlib.util.spec_from_file_location(
+    "multi_card_torch", os.path.join(sys.argv[6], "scripts", "multi_card_torch.py"))
+mc = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mc)
+from minizero_tpu_torch.config import default_config
+from minizero_tpu_torch.learner.replay import ReplayBuffer
+from minizero_tpu_torch.parallel.mesh import make_mesh
+from minizero_tpu_torch.zero.loop import ZeroLoop
+
+job = pickle.load(open(sys.argv[4], "rb"))
+mesh = make_mesh(model_parallel=2, device="cpu")
+played, out = [], {"digests": [], "games": []}
+add_game, self_play = ReplayBuffer.add_game, ZeroLoop.self_play_iteration
+
+def recording_add(self, record):
+    played.append(record)
+    add_game(self, record)
+
+def checked(self, iteration):
+    played.clear()
+    stats = self_play(self, iteration)
+    out["digests"].append(mc.mp_games_agree(self.mesh, played))
+    out["games"].append(len(played))
+    return stats
+
+ReplayBuffer.add_game, ZeroLoop.self_play_iteration = recording_add, checked
+loop = ZeroLoop(default_config("tictactoe", **job["over"]), job["run_dir"], mesh=mesh)
+loop.run()
+loop.close()
+# a group whose rank 1 lost a game
+out["split"] = mc.mp_games_agree(mesh, played[:-1] if mesh.mp_rank == 1 else played)
+out["coords"] = (mesh.dp_rank, mesh.mp_rank)
+torch.save(out, sys.argv[5])
+dist.destroy_process_group()
+print(f"RANK_{rank}_DONE", flush=True)
+"""
+
+
+def test_dp2_mp2_groups_play_the_same_games(tmp_path):
+    over = dict(LOOP_OVER, zero_end_iteration=2)
+    ranks = _gloo_jobs(tmp_path, {"over": over, "run_dir": str(tmp_path / "run")}, 4,
+                       _MP_GAMES_WORKER)
+    assert [rk["coords"] for rk in ranks] == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    for r, rk in enumerate(ranks):
+        assert rk["games"] == [4, 4], r  # ceil(8 / dp) games a row an iteration
+        assert len(rk["digests"]) == 2
+        for digests in rk["digests"]:
+            assert len(digests) == 2 and digests[0] == digests[1], (r, digests)
+        assert rk["digests"] == ranks[2 * (r // 2)]["digests"], r
+        assert rk["split"][0] != rk["split"][1], r
+    for i in range(2):  # the dp rows play different games
+        assert ranks[0]["digests"][i][0] != ranks[2]["digests"][i][0], i
