@@ -47,8 +47,8 @@ Phases:
   5. where the device time goes: one move or search of each path under
      ``torch.profiler``; B3's time in a move per launch;
   6. one zero iteration of the flagship through ``zero.loop.ZeroLoop.run``
-     (gaz n=16, 1 x 256, 1024 games in lock-step, 500 SGD steps at batch
-     1024, from a seeded random init): B1 beside its plain version on the
+     (gaz n=16, 1 x 256, 512 games over 1024 in lock-step, 500 SGD steps
+     at batch 1024, from a seeded random init): B1 beside its plain version on the
      first ``move_scan`` chunk, launch counts over the iteration, the
      records parsed back, the logs, a checkpoint reloaded into a fresh
      loop; games/s, env-steps/s, the ``[SelfPlay Timing]`` split, SGD ms
@@ -56,7 +56,7 @@ Phases:
      device memory; 6e a fresh loop's ``resume()`` on that run directory:
      the replay window rebuilt from the records, its features replayed on
      the card, equal to the loop's byte for byte, with the same step,
-     network and optimizer state; 6b the same for Gumbel MuZero (K=5, 200
+     network and optimizer state; 6b the same for Gumbel MuZero (K=5, 100
      SGD steps); 6f a fresh loop's ``resume()`` on 6b's run: the window
      equal to the loop's byte for byte, and one ``sample_muzero`` batch of
      each buffer from the same ``RandomState`` equal; 6c the train step on
@@ -68,8 +68,8 @@ Phases:
      B=1024 on the synchronized path, B1 beside its plain version over the
      first 16 plies, W/L/D, Elo, ``eval.csv``, plies, ms per ply, games/s,
      B1 launches; a self-match of the iteration-1 net (256 games at
-     B=256, rotation off, two random opening plies) whose wins must split
-     evenly; 7b the GTP console
+     B=256, at most 96 plies a round, rotation off, two random opening
+     plies) whose wins must split evenly; 7b the GTP console
      (``-mode console`` as a subprocess, a script of ``load_model``,
      ``play``, five ``genmove``, ``pv``, ``tree_string``, ``showboard``,
      ``final_score``) plain, with a think time limit and with think batches
@@ -84,14 +84,14 @@ Phases:
      beside the plain version, each timed beside its bound; 8b Othello
      (gaz n=16, the trained ``runs/oth8_gaz_r5`` net of
      ``minizero_tpu_torch/assets/``): one move checked, ``move_scan`` of 8
-     moves, one zero iteration through ``ZeroLoop.run`` (1024 games, 500
-     SGD steps at batch 1024, from a seeded init) and ``-mode eval`` of the
+     moves, one zero iteration through ``ZeroLoop.run`` (512 games over
+     1024 in lock-step, 500 SGD steps at batch 1024, from a seeded init) and ``-mode eval`` of the
      trained net against a seeded init (1024 games at B=1024), which it
      must win; 8c NoGo 9x9 and Kill-All-Go 7x7 with the seki table, 8d
      Clobber 10x10 (gaz n=16 on B1's wide kernel at A=400; az n=50 on B2's
      wide kernel and B3, 4 moves), 8e Gomoku 15x15 and Hex 11x11: gaz n=16
      at B=1024 from seeded 1 x 256 nets, one move with every launch beside
-     its plain version, then 4 moves of ``move_scan`` with exact launch
+     its plain version, then 2 moves of ``move_scan`` with exact launch
      counts and every action legal (8 moves for the trained Othello net).
   9. the stochastic puzzles and the rest of group 3: 9a 2048 gmz n=16 with
      the trained ``runs/p2048_gmz_r5`` net of ``minizero_tpu_torch/assets/``
@@ -100,13 +100,13 @@ Phases:
      whole games from the same boards with the trained net and with a
      seeded init, the trained net's mean return at least 1.5x the init's;
      9b one 2048 zero iteration at that run's recipe (512 games in
-     lock-step, 200 SGD steps at batch 1024; records parsed back with their
+     lock-step, 100 SGD steps at batch 1024; records parsed back with their
      rewards, a checkpoint reloaded, SGD ms/step and the step's idle
      share); 9c 2048 gaz n=16 (AlphaZero with the env's rewards in the
      tree: B1'); 9d Tetris Block Puzzle gmz and gaz n=16 (A=801, B1's wide
      kernel; gaz in its reward regime with the Gumbel root); 9e Rubik's,
      Connect6, Dots and Boxes, Breakthrough, ConHex and Havannah gaz n=16:
-     each 1 checked move, 1 warm-up and 4 moves of ``move_scan`` as in 8c.
+     each 1 checked move, 1 warm-up and 2 moves of ``move_scan`` as in 8c.
  10. Atari over the host env at ``runs/atari_gmz_r5_b128``'s widths
      (Gumbel MuZero n=18, B1' with the Gumbel root, 128 games in lock-step
      on FakeALE(length=900), a seeded net, bf16), and group 5: 10a the host
@@ -114,7 +114,7 @@ Phases:
      beside its plain version, the card ring's stack byte-equal to
      ``AtariVecEnv.features_u8`` on the first 10 moves and after resets,
      32 timed moves split into search and host; 10b one zero iteration at
-     the run's recipe (128 sequences, 200 SGD steps at batch 128, a replay
+     the run's recipe (128 sequences, 100 SGD steps at batch 128, a replay
      window of 7 iterations whose frame window is on the card, OBS tags):
      16 records' OBS against the window's rows, 256 sampled stacks
      assembled on the card equal to ``rebuild_features_from_frames``, SGD
@@ -126,7 +126,7 @@ Phases:
  11. the tools and the data-parallel zero loop: 11a ``tools/analysis.py``'s
      parsers on phase 6's gaz logs (equal to the op.log lines), its plots or,
      without matplotlib, the loop's one ``[Analysis] skipped`` line,
-     ``tools/to_sgf.py`` on the run's 1024 records, ``-mode remove_obs`` on
+     ``tools/to_sgf.py`` on the run's 512 records, ``-mode remove_obs`` on
      16 of phase 10b's records and ``recover_obs_file`` with an
      ``AtariObsReplayer`` over FakeALE (every OBS tag equal to the stripped
      one); 11b ``tools/profile.py`` at the flagship's widths (8 steady
@@ -149,14 +149,14 @@ Phases:
  12. the README's strength protocol at n=800 (``scripts/n800_pair.py``:
      800 simulations, the most visited action, no noise, eval mode, 4
      uniform opening plies, 96 games in lock-step), Go 9x9 at 1 x 256 in
-     two eval engines as ``play_match`` builds them, each path 4 searched
+     two eval engines as ``play_match`` builds them, each path 2 searched
      plies after the openings: 12a az n=800, the trained az n=200 net of
      ``minizero_tpu_torch/assets/`` against a seeded init (B2 staged 65 ->
      ... -> 801, B3 over the [96, 801, 700] blob), 12b gaz n=800 between
      two seeded inits (B1 on [96, 801, 82] trees, sequential halving of 16
      candidates); the first ply's tree steps at simulations 0, 1, 2, 100,
      400 and 800 (and every row gather) beside the plain versions, exact
-     launch counts over the 4 plies, every action legal, ms per ply, the
+     launch counts over the 2 plies, every action legal, ms per ply, the
      games finished so far, and B1 and B2 timed at simulations 100, 400
      and 800 beside their plain versions and bounds, B3 beside
      ``x[arange(B), idx]``.
@@ -206,19 +206,21 @@ B3_TIMED_SIM = AZ_SIMS - 10
 B3_ROUNDS = 3
 FLUSH_BYTES = 128 << 20
 # the trained az n=200 net (scripts/export_trained_weights.py), and the
-# moves it plays before its timed move
+# moves it plays before its timed move (8 until the script passed 1,200 s)
 TRAINED_NPZ = os.path.join("minizero_tpu_torch", "assets", "go9_az200_r3b_iter25000.npz")
-TRAINED_WARM_MOVES = 8
+TRAINED_WARM_MOVES = 2
 FLOAT_ATOL = 1e-5
-# phase 6: one zero iteration at the flagship's widths (the one cut: 1024
-# games, one a slot, where the reference recipe plays 2000); SGD timed by
-# CUDA events over steps SGD_TIMED_FROM..ZERO_STEPS; the train step on the
-# card against the CPU within TRAIN_ATOL (TF32 off)
-ZERO_GAMES = 1024
+# phase 6: one zero iteration at the flagship's widths (the one cut: 512
+# games over 1024 slots, where the reference recipe plays 2000; 1024 until
+# the script passed 1,200 s, whose last games ran to the move cap); SGD
+# timed by CUDA events over steps SGD_TIMED_FROM..ZERO_STEPS; the train
+# step on the card against the CPU within TRAIN_ATOL (TF32 off)
+ZERO_GAMES = 512
 ZERO_BATCH = 1024
 ZERO_STEPS = 500
-# phase 6b's Gumbel MuZero iteration takes fewer steps (~61 ms each)
-GMZ_ZERO_STEPS = 200
+# phase 6b's Gumbel MuZero iteration takes fewer steps (~61 ms each; 200
+# until the script passed 1,200 s)
+GMZ_ZERO_STEPS = 100
 SGD_TIMED_FROM = 11
 CODEC_GAMES = 64
 TRAIN_ATOL = 1e-4
@@ -229,7 +231,10 @@ TRAIN_ATOL = 1e-4
 EVAL_GAMES = 1024
 EVAL_CHECKED_PLIES = 16
 # the self-match's games (at B=256: its time is its plies', host-bound)
+# and its plies a round (the move cap, 176, until the script passed
+# 1,200 s; a game still running at the cap is a draw in both rounds)
 SELF_MATCH_GAMES = 256
+SELF_MATCH_PLIES = 96
 EVAL_PLIES_PER_CHECK = 16
 CONSOLE_TIME_LIMIT = 0.01
 SP_GAMES = 128
@@ -243,6 +248,20 @@ _T0 = time.perf_counter()
 
 def log(msg: str) -> None:
     print(f"[{time.perf_counter() - _T0:8.2f} s] {msg}", flush=True)
+
+
+class PhaseClock:
+    """The seconds of each phase of ``main``: ``start(name)`` ends the
+    phase before it; ``start(None)`` ends the last."""
+
+    def __init__(self):
+        self.seconds, self.name, self.t = {}, None, time.perf_counter()
+
+    def start(self, name) -> None:
+        now = time.perf_counter()
+        if self.name is not None:
+            self.seconds[self.name] = round(now - self.t, 2)
+        self.name, self.t = name, now
 
 
 def fail(msg: str) -> None:
@@ -1403,8 +1422,9 @@ def eval_phase(run_dir: str, cfg_path: str, zero_counts, counts) -> dict:
     against its bootstrap one, EVAL_GAMES games in lock-step at B=1024 on
     the synchronized path, the first EVAL_CHECKED_PLIES plies' tree steps
     beside their plain version; then a self-match of the iteration-1 net,
-    SELF_MATCH_GAMES games, rotation off, two random opening plies, whose
-    result must split evenly. Launch counters are 0 just before each and read just after."""
+    SELF_MATCH_GAMES games of at most SELF_MATCH_PLIES plies a round,
+    rotation off, two random opening plies, whose result must split
+    evenly. Launch counters are 0 just before each and read just after."""
     import minizero_tpu_torch.selfplay.engine as engine_mod
     from minizero_tpu_torch.config import default_config
     from minizero_tpu_torch.eval.match import load_checkpoint_variables, play_match
@@ -1440,7 +1460,8 @@ def eval_phase(run_dir: str, cfg_path: str, zero_counts, counts) -> dict:
     torch.cuda.synchronize()
     t = time.perf_counter()
     r = play_match(cfg.replace(actor_use_random_rotation_features=False), net, net,
-                   num_games=SELF_MATCH_GAMES, seed=5, opening_random_plies=2)
+                   num_games=SELF_MATCH_GAMES, seed=5, max_moves=SELF_MATCH_PLIES,
+                   opening_random_plies=2)
     torch.cuda.synchronize()
     out["self_seconds"] = time.perf_counter() - t
     b1 = counts()["tree_step"]
@@ -1555,9 +1576,9 @@ WIDE_TREE_BYTES = 4 << 30
 WIDE_SMALL_BATCH = 256
 WIDE_CHECKED_STEPS = (0, 1, 2, 100, 199, 200)
 TRAINED_FAMILY_MOVES = 8  # Othello's and 2048's trained nets (8b, 9a)
-# the untrained family paths (8c-8e, 9c-9e, 10d): 4 moves since the script
-# passed 900 s with phase 11 (8 before)
-FAMILY_MOVES = 4
+# the untrained family paths (8c-8e, 9c-9e, 10d): 2 moves since the script
+# passed 1,200 s (8 until it passed 900 s with phase 11, then 4)
+FAMILY_MOVES = 2
 CLOBBER_AZ_SIMS = 50
 CLOBBER_AZ_MOVES = 4
 OTHELLO_NPZ = os.path.join("minizero_tpu_torch", "assets", "oth8_gaz_r5_iter60000.npz")
@@ -1565,13 +1586,13 @@ OTHELLO_TRAINED_STEP = 60000
 # phase 9: the trained 2048 net (runs/p2048_gmz_r5's last checkpoint), the
 # cap on a whole game's moves (the JAX run's longest games took 266-279),
 # the trained net's least edge over a seeded init in mean return, and the
-# run's recipe for one zero iteration (512 games in lock-step, 200 SGD
-# steps an iteration)
+# run's recipe for one zero iteration (512 games in lock-step; 100 of its
+# 200 SGD steps an iteration since the script passed 1,200 s)
 P2048_NPZ = os.path.join("minizero_tpu_torch", "assets", "p2048_gmz_r5_iter30000.npz")
 WHOLE_GAME_CAP = 4000
 TRAINED_EDGE = 1.5
 P2048_GAMES = 512
-P2048_STEPS = 200
+P2048_STEPS = 100
 
 
 def _tree_bytes(x) -> int:
@@ -2061,7 +2082,7 @@ ATARI_FAKE_LENGTH = 900
 ATARI_RING_CHECKS = 10
 ATARI_TIMED_MOVES = 32
 ATARI_FORCED_RESETS = 8
-ATARI_ZERO_STEPS = 200
+ATARI_ZERO_STEPS = 100  # 200 until the script passed 1,200 s
 ATARI_ZERO_BATCH = 128
 ATARI_REPLAY = 7
 ATARI_SAMPLED = 256
@@ -2847,13 +2868,14 @@ def phase11(gaz_dir: str, atari_records, zero_counts, counts) -> dict:
 # scripts/n800_pair.py:47-52 and scripts/elo_curve.py:16: 800 simulations,
 # the most visited action, no noise, eval mode, 4 uniform opening plies,
 # min(games, 96) games in lock-step; each path plays N800_PLIES searched
-# plies after the openings
+# plies after the openings (the first beside the plain version, the rest
+# timed; 4 until the script passed 1,200 s)
 N800_PROTOCOL = ("actor_num_simulation=800:actor_select_action_by_count=true:"
                  "actor_select_action_by_softmax_count=false:actor_use_dirichlet_noise=false:"
                  "actor_use_gumbel_noise=false")
 N800_BATCH = 96
 N800_OPENING_PLIES = 4
-N800_PLIES = 4
+N800_PLIES = 2
 # the first searched ply's tree steps at these simulations run beside the
 # plain version (a plain step on an 801-node tree is slow); those at
 # N800_TIMED_SIMS are kept and timed
@@ -3094,7 +3116,9 @@ def main() -> None:
         fused_tree_step.launches = fused_tree_step.launches_rewards = 0
         fused_tree_step_v2.launches = gather_rows.launches = gather_rows.launches_aligned = 0
 
+    clock = PhaseClock()
     # ---- 1. device -----------------------------------------------------------
+    clock.start("1")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -3102,6 +3126,7 @@ def main() -> None:
         f"{count} device(s), using {kind}")
 
     # ---- 2. build --------------------------------------------------------------
+    clock.start("2")
     # gather_rows_floor: B3's floor, timed beside it in phase 4b'
     kernels = ["tree_step", "tree_step_v2", "gather_rows", "gather_rows_floor"]
     t = time.perf_counter()
@@ -3138,6 +3163,7 @@ def main() -> None:
     log(f"phase 2 build done in {time.perf_counter() - t:.2f} s (nvcc processes in parallel)")
 
     # ---- 3. kernel vs plain version at full width ----------------------------
+    clock.start("3")
     cfg = default_config("go", **algorithm_preset("gaz"))
     env = make_env(cfg)
     net = init_network(create_network(cfg, env.spec), seed=0)
@@ -3250,6 +3276,7 @@ def main() -> None:
     log(f"phase 3f small Atari search: {msg}, in {time.perf_counter() - t:.2f} s")
 
     # ---- 4. main paths ---------------------------------------------------------
+    clock.start("4")
     states = out.states
     warm = engine.move(states)  # warm-up move
     torch.cuda.synchronize()
@@ -3438,6 +3465,7 @@ def main() -> None:
         f"ms, plain {p4_ms:.3f} ms, bound {bound4_ms:.5f} ms ({byts4} bytes, {flops4} flops)")
 
     # ---- 5. where the device time goes ----------------------------------------
+    clock.start("5")
     line, _ = profile_run(lambda: engine.move(end_states), 1e3 * elapsed / SCAN_MOVES,
                           ("tree_step_kernel",))
     log(f"phase 5 one profiled gaz move: {line}")
@@ -3457,6 +3485,7 @@ def main() -> None:
     log(f"phase 5 one profiled Atari search: {line}")
 
     # ---- 6. the zero iteration: self-play, records, replay, SGD, checkpoint --
+    clock.start("6")
     # the timed training runs with PyTorch's defaults: cuDNN convolutions in
     # TF32, matrix products in float32 (self-play is bf16 either way)
     torch.backends.cudnn.allow_tf32 = True
@@ -3501,6 +3530,7 @@ def main() -> None:
     log(f"phase 6c done in {time.perf_counter() - t:.2f} s")
 
     # ---- 7. eval, console and the other CLI modes on the gaz run ----------
+    clock.start("7")
     torch.backends.cudnn.allow_tf32 = True
     cfg_path = os.path.join(gaz_dir, "gaz.cfg")
     gaz_zero["cfg"].save_file(cfg_path)
@@ -3534,6 +3564,7 @@ def main() -> None:
         f"-mode zero_training_name: {om['name']} in {om['name_s']:.3f} s")
 
     # ---- 8. the tree steps past 384 actions; Othello, NoGo, Kill-All-Go,
+    clock.start("8")
     # Clobber, Gomoku and Hex at full width -----------------------------------
     t = time.perf_counter()
     p8 = phase8(zero_counts, counts)
@@ -3572,6 +3603,7 @@ def main() -> None:
         "library_ms": ca["b3"][3],
     }]
     # ---- 9. 2048, Tetris Block Puzzle and the rest of group 3 ---------------
+    clock.start("9")
     t = time.perf_counter()
     p9 = phase9(zero_counts, counts)
     log(f"phase 9 done in {time.perf_counter() - t:.2f} s")
@@ -3590,6 +3622,7 @@ def main() -> None:
             "plain_ms": r["b1"][1], "bound_ms": r["b1"][2], "bound_by": r["b1"][3],
             "library_ms": None})
     # ---- 10. Atari over the host env; group 5 --------------------------------
+    clock.start("10")
     t = time.perf_counter()
     p10 = phase10(zero_counts, counts)
     log(f"phase 10 done in {time.perf_counter() - t:.2f} s")
@@ -3612,10 +3645,12 @@ def main() -> None:
             "plain_ms": r["b1"][1], "bound_ms": r["b1"][2], "bound_by": r["b1"][3],
             "library_ms": None})
     # ---- 11. the tools; the data-parallel zero loop -------------------------
+    clock.start("11")
     t = time.perf_counter()
     p11 = phase11(gaz_dir, p10["atari_zero"].pop("obs_records"), zero_counts, counts)
     log(f"phase 11 done in {time.perf_counter() - t:.2f} s")
     # ---- 12. the README's strength protocol at n=800 -------------------------
+    clock.start("12")
     t = time.perf_counter()
     p12 = phase12(zero_counts, counts)
     log(f"phase 12 done in {time.perf_counter() - t:.2f} s")
@@ -3715,6 +3750,8 @@ def main() -> None:
         **{f"n800_{key}_{k}": p12[key][k] for key in ("az", "gaz")
            for k in ("ms_per_ply", "first_ply_s")},
         "n800_az_wld_running": [*p12["az"]["wld"], p12["az"]["running"]]}
+    clock.start(None)
+    log(f"phase seconds: {json.dumps(clock.seconds)}, in all {sum(clock.seconds.values()):.2f} s")
     print(json.dumps(result), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

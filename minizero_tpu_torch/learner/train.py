@@ -116,7 +116,9 @@ def make_train_step(cfg: Config, env, network: nn.Module,
     where the caller gives them. The metrics are 0-d tensors on the device
     (with PER, ``_new_values`` holds the fresh root values, [B], for the
     priority refresh, reference train.py:208-209). The network is in train
-    mode during the step and in eval mode after it."""
+    mode during the step and in eval mode after it. The step computes in
+    the parameters' dtype: float32 as a rule, float64 where the network
+    was cast with ``.double()``."""
     spec = env.spec
     value_size = spec.discrete_value_size
     is_muzero = cfg.nn_type_name.lower() != "alphazero"
@@ -127,10 +129,10 @@ def make_train_step(cfg: Config, env, network: nn.Module,
     # board games store 0/1 (bit-packed 8 to a byte where binary)
     feat_scale = 1.0 / 255.0 if spec.name.startswith("atari") else 1.0
 
-    def features(x: torch.Tensor) -> torch.Tensor:
+    def features(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         if x.shape[-1] != spec.num_input_channels:
-            return unpack_planes(x, spec.num_input_channels)
-        return x.to(torch.float32) * feat_scale
+            return unpack_planes(x, spec.num_input_channels).to(dtype)
+        return x.to(dtype) * feat_scale
 
     def prepare_value_label(value):
         """Scalar targets for scalar heads; transformed two-hot for
@@ -155,14 +157,13 @@ def make_train_step(cfg: Config, env, network: nn.Module,
             actions = rot.rotate_actions_batch(actions, rots, spec.board_size, spec.action_size)
         return feats, policy, actions
 
-    def alphazero_loss(batch, rots):
-        feats, policy_label, _ = augment(rots, features(batch["features"]),
-                                         batch["policy"].to(torch.float32))
+    def alphazero_loss(batch, rots, dtype):
+        feats, policy_label, _ = augment(rots, features(batch["features"], dtype),
+                                         batch["policy"].to(dtype))
         out = network(feats)
-        ls = batch["loss_scale"].to(torch.float32)
+        ls = batch["loss_scale"].to(dtype)
         loss_p = _policy_loss(use_gumbel, out["policy_logit"], policy_label, ls)
-        loss_v = _value_loss(out, prepare_value_label(batch["value"].to(torch.float32)), ls,
-                             value_size)
+        loss_v = _value_loss(out, prepare_value_label(batch["value"].to(dtype)), ls, value_size)
         loss = loss_p + cfg.learner_value_loss_scale * loss_v
         metrics = {
             "loss": loss,
@@ -174,20 +175,18 @@ def make_train_step(cfg: Config, env, network: nn.Module,
             metrics["_new_values"] = scalar_value(out)
         return loss, metrics
 
-    def muzero_loss(batch, rots):
+    def muzero_loss(batch, rots, dtype):
         feats, policy_label, actions = augment(
-            rots, features(batch["features"]), batch["policy"].to(torch.float32),
-            batch["actions"])
-        ls = batch["loss_scale"].to(torch.float32)
-        value_label = prepare_value_label(batch["value"].to(torch.float32))  # [B, K+1(, V)]
+            rots, features(batch["features"], dtype), batch["policy"].to(dtype), batch["actions"])
+        ls = batch["loss_scale"].to(dtype)
+        value_label = prepare_value_label(batch["value"].to(dtype))  # [B, K+1(, V)]
         has_reward = "reward" in batch and spec.name.startswith("atari")
-        reward_label = (prepare_value_label(batch["reward"].to(torch.float32))
-                        if has_reward else None)
+        reward_label = prepare_value_label(batch["reward"].to(dtype)) if has_reward else None
 
         out = network.initial_inference(feats)
         loss_p = _policy_loss(use_gumbel, out["policy_logit"], policy_label[:, 0], ls)
         loss_v = _value_loss(out, value_label[:, 0], ls, value_size)
-        loss_r = torch.zeros((), dtype=torch.float32, device=feats.device)
+        loss_r = torch.zeros((), dtype=dtype, device=feats.device)
         acc0 = _policy_accuracy(out["policy_logit"], policy_label[:, 0])
         root_value = scalar_value(out) if cfg.learner_use_per else None
         hidden = out["hidden_state"]
@@ -219,7 +218,8 @@ def make_train_step(cfg: Config, env, network: nn.Module,
 
     def train_step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None,
                    rotations: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        dev = next(network.parameters()).device
+        param = next(network.parameters())
+        dev = param.device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
                  if k != "sampled_index"}
         rots = None
@@ -232,7 +232,7 @@ def make_train_step(cfg: Config, env, network: nn.Module,
             group["lr"] = lr
         network.train()
         try:
-            loss, metrics = loss_fn(batch, rots)
+            loss, metrics = loss_fn(batch, rots, param.dtype)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
             if grad_hook is not None:

@@ -1,19 +1,26 @@
 """The reference training recipes through the PyTorch port: the port's
-counterparts of the JAX runs ``runs/go9_gaz_full`` (``gaz``, the default)
-and ``runs/go9_gmz_r4`` (``gmz``).
+counterparts of the JAX runs ``runs/go9_gaz_full`` (``gaz``, the default),
+``runs/go9_gmz_r4`` (``gmz``) and ``runs/go9_az200_r3b`` (``az``).
 
 ``gaz``: Go 9x9 Gumbel AlphaZero at n=16, from ``runs/go9_gaz_full.cfg``.
 ``gmz``: Go 9x9 Gumbel MuZero at n=16 with K=5 unroll steps, from the
 ``config`` entry of ``runs/go9_gmz_r4/model/weight_iter_12500.ckpt`` (its
-Dirichlet root noise included). Both: a net of 1 block x 256 channels,
-1,024 games in lock-step, 2,000 games and 500 SGD steps (batch 1,024; SGD
-at lr 0.02, momentum 0.9, weight decay 1e-4) an iteration, a replay window
-of 20 iterations and random rotation of the features, from iteration 0
-with ``program_seed=0``. The config is built from ``default_config("go",
+Dirichlet root noise included). Both: 2,000 games and 500 SGD steps an
+iteration. ``az``: Go 9x9 plain AlphaZero at n=200, from the ``config``
+entry of ``runs/go9_az200_r3b/model/weight_iter_3125.ckpt``: Dirichlet
+root noise (alpha 0.03, epsilon 0.25), actions drawn from the softmax of
+the counts, resignation at -0.9 with 10% of the games kept playing, 500
+games and 125 SGD steps an iteration; its searches run on the packed trees
+(tree step B2, parent states gathered by B3). All three: a net of 1 block
+x 256 channels, 1,024 games in lock-step, batch 1,024, SGD at lr 0.02,
+momentum 0.9, weight decay 1e-4, a replay window of 20 iterations and
+random rotation of the features, from iteration 0 with
+``program_seed=0``. The config is built from ``default_config("go",
 **algorithm_preset(recipe))`` and the recipe's overrides (``RECIPE``,
-``RECIPE_GMZ``), written to ``recipe.cfg`` in the run directory and handed
-to the port's CLI (``python -m minizero_tpu_torch -mode zero -conf_file
-... -conf_str zero_end_iteration=E -run_dir DIR``) in one process for
+``RECIPE_GMZ``, ``RECIPE_AZ``), written to ``recipe.cfg`` in the run
+directory and handed to the port's CLI (``python -m minizero_tpu_torch
+-mode zero -conf_file ... -conf_str zero_end_iteration=E -run_dir DIR``)
+in one process for
 iterations ``first``..``split`` and in a second one, the same command with
 ``zero_end_iteration=last``, which resumes the run from its newest
 checkpoint (``ZeroLoop.resume``: the replay window's features rebuilt on
@@ -22,8 +29,10 @@ the device from the record files).
 Each process calls the CLI's ``main`` with that argument list inside this
 script (``--process``), which wraps the loop's methods to measure each
 iteration and check it: exactly ``zero_num_games_per_iteration`` games;
-tree step B1 launched 17 times a move (n + 1) in its board regime and B1',
-B2, B3 never; finite losses (``loss_reward`` 0 for MuZero on a board
+for ``gaz`` and ``gmz`` tree step B1 launched 17 times a move (n + 1) in
+its board regime and B1', B2, B3 never, for ``az`` B2 201 times a move and
+B3 200 times, every B3 launch on its aligned path, and B1, B1' never;
+finite losses (``loss_reward`` 0 for MuZero on a board
 game); the replay window holding exactly the games of the last 20
 iterations (each game tagged with the iteration that played it); on
 resume, a digest of every rebuilt game (actions, feature planes, policy
@@ -38,14 +47,17 @@ added it.
 After the run the matches follow through ``eval.match.play_match``, the
 protocol of ``scripts/elo_curve.py`` (the run's config, at most 96 games
 in lock-step, 96 games, eval mode; ``gmz``: 4 uniform opening plies as
-``runs/go9_gmz_r4/elo_curve.json``): for ``gmz`` first the port's own
-ladder, step 2,500 i against 2,500 (i - 1) at seed 1000 + i up to the last
-step; then (a) the JAX run's step-12,500 net against its step-0 net
-(``minizero_tpu_torch/assets/go9_{gaz_full,gmz_r4}_iter*.npz``, exported
-by ``scripts/export_trained_weights.py``); (b) the port's own
-step-``last x 500`` net against its step-0 net; (c) the port's against the
-JAX run's, reported only; (a) to (c) at seed 1001. For ``gmz`` on the card
-(a) and (b) must each win at least ``MIN_WINS`` of the 96 games.
+``runs/go9_gmz_r4/elo_curve.json``): for ``gmz`` and ``az`` first the
+port's own ladder, a rung every 5 iterations (step s i against s (i - 1)
+at seed 1000 + i up to the last step), each beside the JAX run's rung;
+then (a) the JAX run's newest exported net (step 12,500; ``az``: 3,125)
+against its step-0 net (``minizero_tpu_torch/assets/{JAX_RUN}_iter*.npz``,
+exported by ``scripts/export_trained_weights.py``); for ``gaz`` and
+``gmz`` (b) the port's own last net against its step-0 net; (c) the port's
+last net against the JAX run's newest, reported only (``az``: beside the
+wins the JAX ladder's Elo gap between the two steps predicts); (a) to (c)
+at seed 1001. On the card the matches of ``MIN_WINS`` must win at least
+that many of the 96 games, and those of ``MORE_WINS`` more than they lose.
 
 Prints one JSON line an iteration, one a process, one a match, then a
 summary line with the card's name and power limit from ``nvidia-smi``.
@@ -53,16 +65,19 @@ Each process's output goes to ``out_dir/process{i}.log`` and the run's
 logs (``Training.log``, ``op.log``, ``perf.jsonl``, ``recipe.cfg``) are
 copied to ``out_dir`` (default ``run_dir/out``).
 
-    python3 scripts/zero_recipe_torch.py [gaz|gmz] [run_dir] [first=1] [last=25] \
-        [split=12 (gaz), 8 (gmz)] [out_dir] [cpu]
+    python3 scripts/zero_recipe_torch.py [gaz|gmz|az] [run_dir] [first=1] \
+        [last=25 (gaz, gmz), 10 (az)] [split=12 (gaz), 8 (gmz), 5 (az)] [out_dir] [cpu]
 
-``run_dir`` defaults to ``_runs/go9_{gaz,gmz}_recipe`` (git-ignored). With
+``run_dir`` defaults to ``_runs/go9_{recipe}_recipe`` (git-ignored). With
 ``first`` > 1 the run directory must hold the checkpoint of iteration
-``first - 1``. ``cpu`` runs everything on the CPU (the tree step's plain
-version) at a tiny size: a 1 x 16 net, 2 simulations, 4 games an
+``first - 1``. ``cpu`` runs everything on the CPU (the kernels' plain
+versions) at a tiny size: a 1 x 16 net, 2 simulations, 4 games an
 iteration, 4 SGD steps at batch 8, iterations 1-2 split after 1, 2 games a
-match capped at 8 plies (match (a) at the JAX nets' full width), and for
-``gmz`` a ladder rung an iteration.
+match capped at 8 plies a round (match (a) at the JAX nets' full width and
+the CPU form's simulations), and for ``gmz`` and ``az`` a ladder rung an
+iteration; ``az`` with the changes of ``CPU_RECIPE`` (47 simulations, the
+fewest that take the packed trees; games resigned at their second move)
+and 2 plies a round.
 """
 import hashlib
 import json
@@ -102,39 +117,80 @@ RECIPE_GMZ = dict(
     learner_training_display_step=100, learner_batch_size=1024, learner_optimizer="SGD",
     learner_learning_rate=0.02, learner_momentum=0.9, learner_weight_decay=1e-4,
     program_seed=0, zero_start_iteration=0, zero_end_iteration=50)
-RECIPES = {"gaz": RECIPE, "gmz": RECIPE_GMZ}
-# the CPU form, cut to seconds: a narrow net, 2 simulations, 4 games
+# the config entry of runs/go9_az200_r3b/model/weight_iter_3125.ckpt over
+# default_config("go", **algorithm_preset("az")), but for the iteration
+# that run was resumed at (25): this run starts from 0
+RECIPE_AZ = dict(
+    env_board_size=9, actor_num_simulation=200, actor_use_dirichlet_noise=True,
+    actor_dirichlet_noise_alpha=0.03, actor_dirichlet_noise_epsilon=0.25,
+    actor_select_action_by_softmax_count=True, actor_select_action_softmax_temperature=1.0,
+    actor_use_random_rotation_features=True, actor_resign_threshold=-0.9,
+    zero_disable_resign_ratio=0.1, nn_num_blocks=1, nn_num_hidden_channels=256,
+    nn_num_value_hidden_channels=256, zero_num_parallel_games=1024,
+    zero_num_games_per_iteration=500, zero_replay_buffer=20, learner_training_step=125,
+    learner_training_display_step=100, learner_batch_size=1024, learner_optimizer="SGD",
+    learner_learning_rate=0.02, learner_momentum=0.9, learner_weight_decay=1e-4,
+    program_seed=0, zero_start_iteration=0, zero_end_iteration=50)
+RECIPES = {"gaz": RECIPE, "gmz": RECIPE_GMZ, "az": RECIPE_AZ}
+# the CPU form, cut to seconds: a narrow net, 2 simulations, 4 games; az
+# keeps 47 simulations, the fewest whose trees (48 nodes) the engine packs
+# (selfplay/engine.py use_tree_kernel_v2), so that it runs B2's and B3's
+# plain versions, at about 1 s a move: so every game resigns at its
+# second move (a threshold above any value) but the 10% kept playing, a
+# dispatch is 2 moves (an iteration dispatches one more than it collects)
+# and a match plays 2 plies a round
 CPU_TINY = dict(actor_num_simulation=2, actor_gumbel_sample_size=2, nn_num_hidden_channels=16,
                 nn_num_value_hidden_channels=16, zero_num_parallel_games=4,
                 zero_num_games_per_iteration=4, learner_training_step=4,
                 learner_training_display_step=2, learner_batch_size=8)
-LAST = 25
+CPU_RECIPE = {"az": dict(actor_num_simulation=47, actor_resign_threshold=1.0,
+                        zero_moves_per_dispatch=2)}
+LAST = {"gaz": 25, "gmz": 25, "az": 10}
 # the process split: the JAX gmz run was itself resumed at iteration 8
-# (runs/go9_gmz_r4/Training.log:53)
-SPLIT = {"gaz": 12, "gmz": 8}
+# (runs/go9_gmz_r4/Training.log:53); az at the middle of its 10 iterations
+SPLIT = {"gaz": 12, "gmz": 8, "az": 5}
 MATCH_GAMES = 96
 # scripts/elo_curve.py: seed 1000 + i for the ladder's i-th pair; at an
 # interval of 25 iterations (runs/go9_gaz_full/elo_curve.json) the pair of
 # iterations 25 and 0 is i = 1
 MATCH_SEED = 1001
-CPU_MATCH_GAMES, CPU_MATCH_PLIES = 2, 8
+CPU_MATCH_GAMES = 2
+CPU_MATCH_PLIES = {"gaz": 8, "gmz": 8, "az": 2}
 # runs/go9_gmz_r4/elo_curve.json: 4 uniform opening plies, a rung every 5
-# iterations
-OPENING_PLIES = {"gaz": 0, "gmz": 4}
-LADDER_EVERY = {"gaz": 0, "gmz": 5}
+# iterations; runs/go9_az200_r3b/elo_curve.json: no opening plies, a rung
+# every 5 iterations
+OPENING_PLIES = {"gaz": 0, "gmz": 4, "az": 0}
+LADDER_EVERY = {"gaz": 0, "gmz": 5, "az": 5}
 ASSETS = os.path.join(ROOT, "minizero_tpu_torch", "assets")
-JAX_RUN = {"gaz": "go9_gaz_full", "gmz": "go9_gmz_r4"}
+JAX_RUN = {"gaz": "go9_gaz_full", "gmz": "go9_gmz_r4", "az": "go9_az200_r3b"}
+# the newest exported step of each JAX run (match (a), and (c)'s opponent)
+JAX_STEP = {"gaz": 12500, "gmz": 12500, "az": 3125}
 # the JAX runs' ladders at this protocol (runs/*/elo_curve.json): gaz's
-# pair of iterations 25 and 0; gmz's first five rungs (W, L, D)
+# pair of iterations 25 and 0; gmz's first five rungs and az's first two
+# (W, L, D)
 JAX_LADDER = {"wins": 87, "losses": 9, "draws": 0}
-JAX_LADDER_GMZ = {2500: (63, 33, 0), 5000: (79, 17, 0), 7500: (78, 18, 0),
-                  10000: (64, 32, 0), 12500: (76, 20, 0)}
-# gmz on the card: matches (a) and (b) each win at least this many of 96
-MIN_WINS = 80
+JAX_LADDERS = {"gmz": {2500: (63, 33, 0), 5000: (79, 17, 0), 7500: (78, 18, 0),
+                       10000: (64, 32, 0), 12500: (76, 20, 0)},
+               "az": {625: (91, 5, 0), 1250: (75, 21, 0)}}
+# the az ladder's Elo at the steps this script reaches and at JAX_STEP
+# (runs/go9_az200_r3b/elo_curve.json "points")
+JAX_ELO_AZ = {625: 504.0, 1250: 725.2, 3125: 1360.9}
+# on the card: the matches that must each win at least this many of 96,
+# and those that must win more games than they lose
+MIN_WINS = {"gaz": {}, "gmz": {"a": 80, "b": 80}, "az": {"r1": 80, "a": 90}}
+MORE_WINS = {"gaz": (), "gmz": (), "az": ("r2",)}
+# the recipes that play (b), the port's last net against its first; az's
+# rungs are the port's own steps already
+PORT_PAIR = ("gaz", "gmz")
 # gmz: the iterations after which unroll_check runs
 UNROLL_CHECKED = (1, 8, 20, 21, 25)
 UNROLL_SEED = 19
 SGD_TIMED_FROM = 11
+
+
+def expected_wins(elo_gap: float, games: int = MATCH_GAMES) -> float:
+    """The wins of ``games`` that an Elo lead of ``elo_gap`` predicts."""
+    return games / (1.0 + 10.0 ** (-elo_gap / 400.0))
 
 
 def jax_net_path(recipe: str, step: int) -> str:
@@ -151,7 +207,9 @@ def recipe_config(cpu: bool = False, recipe: str = "gaz"):
     from minizero_tpu_torch.config import algorithm_preset, default_config
 
     cfg = default_config("go", **algorithm_preset(recipe)).replace(**RECIPES[recipe])
-    return cfg.replace(**CPU_TINY) if cpu else cfg
+    if not cpu:
+        return cfg
+    return cfg.replace(**{**CPU_TINY, **CPU_RECIPE.get(recipe, {})})
 
 
 def fail(msg: str) -> None:
@@ -309,11 +367,12 @@ class StepEvents:
 
 
 def run_process(run_dir: str, conf_file: str, end: int, platform: str, index: int,
-                unroll_at=()) -> None:
+                unroll_at=(), recipe: str = "gaz") -> None:
     """One process of the run: the CLI's ``-mode zero`` in this process, the
     loop's methods wrapped to measure and check each iteration; for MuZero
     ``unroll_check`` after the iterations of ``unroll_at`` and the
-    resume."""
+    resume. ``az`` searches on the packed trees (B2, B3), the others on
+    B1."""
     import torch
 
     from minizero_tpu_torch.__main__ import main as cli
@@ -328,9 +387,11 @@ def run_process(run_dir: str, conf_file: str, end: int, platform: str, index: in
     now = {"iteration": 0}
     it_stats = {}
 
+    packed = recipe == "az"
+
     def counts():
         return (fused_tree_step.launches, fused_tree_step.launches_rewards,
-                fused_tree_step_v2.launches, gather_rows.launches)
+                fused_tree_step_v2.launches, gather_rows.launches, gather_rows.launches_aligned)
 
     init, resume = zl.ZeroLoop.__init__, zl.ZeroLoop.resume
     self_play, optimize = zl.ZeroLoop.self_play_iteration, zl.ZeroLoop.optimize_iteration
@@ -357,6 +418,9 @@ def run_process(run_dir: str, conf_file: str, end: int, platform: str, index: in
         init(self, *args, **kwargs)
         if (self.device.type == "cuda") != cuda:
             fail(f"the loop runs on {self.device}, expected {'cuda' if cuda else 'cpu'}")
+        if self.engine.use_tree_kernel_v2 != packed:
+            fail(f"the engine's use_tree_kernel_v2 is {self.engine.use_tree_kernel_v2} for "
+                 f"{recipe}")
         self._train_step = StepEvents(self._train_step, cuda)
         loops.append(self)
 
@@ -412,7 +476,7 @@ def run_process(run_dir: str, conf_file: str, end: int, platform: str, index: in
         stats = self_play(self, iteration)
         if cuda:
             torch.cuda.synchronize()
-        b1, b1r, b2, b3 = (a - b for a, b in zip(counts(), before))
+        b1, b1r, b2, b3, b3_aligned = (a - b for a, b in zip(counts(), before))
         timing = dict(self.last_selfplay_timing)
         moves = timing["chunks"] * timing["moves_per_chunk"]
         lengths = it_stats.pop("lengths")
@@ -422,10 +486,13 @@ def run_process(run_dir: str, conf_file: str, end: int, platform: str, index: in
             timing=timing, moves=moves, length_min=min(lengths), length_max=max(lengths),
             length_avg=stats["length_avg"], return_avg=stats["return_avg"],
             launches={"tree_step": b1, "tree_step_rewards": b1r, "tree_step_v2": b2,
-                      "gather_rows": b3})
+                      "gather_rows": b3, "gather_rows_aligned": b3_aligned})
         if stats["games"] != self.cfg.zero_num_games_per_iteration:
             fail(f"iteration {iteration}: {stats['games']} games")
-        if cuda and (b1 != moves * (self.engine.spec.num_simulations + 1) or b1r or b2 or b3):
+        n = self.engine.spec.num_simulations
+        want = ((0, 0, moves * (n + 1), moves * n, moves * n) if packed else
+                (moves * (n + 1), 0, 0, 0, 0))
+        if cuda and (b1, b1r, b2, b3, b3_aligned) != want:
             fail(f"iteration {iteration}: launches {it_stats['launches']} over {moves} moves")
         return stats
 
@@ -488,12 +555,22 @@ def run_process(run_dir: str, conf_file: str, end: int, platform: str, index: in
 
 def match(cfg, net_a, net_b, games: int, plies, device: str, seed: int = MATCH_SEED,
           opening_plies: int = 0) -> dict:
+    """One ``play_match``; on the card its searched plies from the tree
+    steps' launches (n + 1 a ply, B1's or B2's) and the kernels' counts,
+    which must show one path: B1 alone, or B2 with B3 n times a ply, every
+    B3 launch aligned."""
     import torch
 
     from minizero_tpu_torch.eval.match import elo_from_win_rate, play_match
+    from minizero_tpu_torch.ops.gather_rows import gather_rows
     from minizero_tpu_torch.ops.tree_kernel import fused_tree_step
+    from minizero_tpu_torch.ops.tree_kernel_v2 import fused_tree_step_v2
 
-    before = fused_tree_step.launches
+    def counts():
+        return (fused_tree_step.launches, fused_tree_step_v2.launches, gather_rows.launches,
+                gather_rows.launches_aligned)
+
+    before = counts()
     if device == "cuda":
         torch.cuda.synchronize()
     t = time.perf_counter()
@@ -502,16 +579,22 @@ def match(cfg, net_a, net_b, games: int, plies, device: str, seed: int = MATCH_S
     if device == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t
-    launches = fused_tree_step.launches - before
-    searched = launches // (cfg.actor_num_simulation + 1) if device == "cuda" else None
+    b1, b2, b3, b3_aligned = (a - b for a, b in zip(counts(), before))
+    n = cfg.actor_num_simulation
+    searched = (b1 + b2) // (n + 1) if device == "cuda" else None
+    if device == "cuda" and (b1 + b2 != searched * (n + 1) or (b1 and b2) or
+                             (b3, b3_aligned) != ((searched * n,) * 2 if b2 else (0, 0))):
+        fail(f"match at seed {seed}: launches B1 {b1}, B2 {b2}, B3 {b3} ({b3_aligned} aligned)")
     return {"wins": r.p1_wins, "losses": r.p2_wins, "draws": r.draws,
             "win_rate": r.p1_win_rate, "elo": elo_from_win_rate(r.p1_win_rate),
-            "seconds": seconds, "seed": seed, "plies": searched, "b1_launches": launches,
+            "seconds": seconds, "seed": seed, "plies": searched, "b1_launches": b1,
+            "b2_launches": b2, "b3_launches": b3,
             "ms_per_ply": 1e3 * seconds / searched if searched else None}
 
 
 def matches(recipe: str, run_cfg, run_dir: str, last_step: int, cpu: bool) -> list:
     from minizero_tpu_torch.envs import make_env
+    from minizero_tpu_torch.eval import match as tmatch
     from minizero_tpu_torch.eval.match import load_checkpoint_variables
     from minizero_tpu_torch.models.factory import create_network
     from minizero_tpu_torch.weights import (from_jax_muzero_variables, from_jax_variables,
@@ -519,10 +602,19 @@ def matches(recipe: str, run_cfg, run_dir: str, last_step: int, cpu: bool) -> li
 
     device = "cpu" if cpu else "cuda"
     games = CPU_MATCH_GAMES if cpu else MATCH_GAMES
-    plies = CPU_MATCH_PLIES if cpu else None
+    plies = CPU_MATCH_PLIES[recipe] if cpu else None
+    if cpu:
+        # a round ends at the cap, not at the next multiple of the
+        # finished-games check
+        tmatch.PLIES_PER_CHECK = plies
     opening = OPENING_PLIES[recipe]
     full = recipe_config(recipe=recipe).replace(zero_num_parallel_games=min(games, 96))
     cfg = run_cfg.replace(zero_num_parallel_games=min(games, 96))
+    if cpu:
+        # the JAX nets at their width, searching as the CPU form does
+        full = full.replace(actor_num_simulation=cfg.actor_num_simulation,
+                            actor_gumbel_sample_size=cfg.actor_gumbel_sample_size)
+    top = JAX_STEP[recipe]
     convert = from_jax_muzero_variables if recipe == "gmz" else from_jax_variables
 
     def jax_net(step):
@@ -540,24 +632,29 @@ def matches(recipe: str, run_cfg, run_dir: str, last_step: int, cpu: bool) -> li
     every = (1 if cpu else LADDER_EVERY[recipe]) * cfg.learner_training_step
     rungs = last_step // every if LADDER_EVERY[recipe] else 0
     for i in range(1, rungs + 1):
-        jax_rung = None if cpu else JAX_LADDER_GMZ.get(i * every)
+        jax_rung = None if cpu else JAX_LADDERS[recipe].get(i * every)
         pairs.append((f"r{i}", f"port {i * every} vs port {(i - 1) * every}", cfg,
                       port_net(i * every), port_net((i - 1) * every), 1000 + i,
                       jax_rung and dict(zip(("wins", "losses", "draws"), jax_rung))))
-    pairs += [("a", "JAX run 12500 vs JAX run 0", full, jax_net(12500), jax_net(0), MATCH_SEED,
-               JAX_LADDER if recipe == "gaz" else None),
-              ("b", f"port {last_step} vs port 0", cfg, port_net(last_step), port_net(0),
-               MATCH_SEED, None)]
+    pairs.append(("a", f"JAX run {top} vs JAX run 0", full, jax_net(top), jax_net(0), MATCH_SEED,
+                  JAX_LADDER if recipe == "gaz" else None))
+    if recipe in PORT_PAIR:
+        pairs.append(("b", f"port {last_step} vs port 0", cfg, port_net(last_step), port_net(0),
+                      MATCH_SEED, None))
     if not cpu:
         # the CPU form's run trains a narrower net than the JAX run's
-        pairs.append(("c", f"port {last_step} vs JAX run 12500", cfg, port_net(last_step),
-                      jax_net(12500), MATCH_SEED, None))
+        pairs.append(("c", f"port {last_step} vs JAX run {top}", cfg, port_net(last_step),
+                      jax_net(top), MATCH_SEED, None))
     out = []
     for key, name, mcfg, a, b, seed, jax_ladder in pairs:
         r = {"match": key, "pair": name,
              **match(mcfg, a, b, games, plies, device, seed, opening)}
         if jax_ladder:
             r["jax_ladder"] = jax_ladder
+        if key == "c" and recipe == "az" and last_step in JAX_ELO_AZ:
+            # the JAX ladder's own nets at these two steps
+            gap = JAX_ELO_AZ[last_step] - JAX_ELO_AZ[top]
+            r["jax_expectation"] = {"elo": gap, "wins": expected_wins(gap)}
         print(json.dumps(r), flush=True)
         out.append(r)
     return out
@@ -565,11 +662,12 @@ def matches(recipe: str, run_cfg, run_dir: str, last_step: int, cpu: bool) -> li
 
 # ---------------------------------------------------------------------- main
 
-def main(recipe: str = "gaz", run_dir: str = "", first: int = 1, last: int = LAST,
+def main(recipe: str = "gaz", run_dir: str = "", first: int = 1, last: int = 0,
          split: int = 0, out_dir: str = "", platform: str = "gpu") -> None:
     cpu = platform == "cpu"
     split = int(split) or SPLIT[recipe]
-    if cpu and (int(first), int(last), split) == (1, LAST, SPLIT[recipe]):
+    last = int(last) or LAST[recipe]
+    if cpu and (int(first), last, split) == (1, LAST[recipe], SPLIT[recipe]):
         last, split = 2, 1
     first, last = int(first), int(last)
     run_dir = os.path.abspath(run_dir or os.path.join(ROOT, "_runs", f"go9_{recipe}_recipe"))
@@ -598,7 +696,7 @@ def main(recipe: str = "gaz", run_dir: str = "", first: int = 1, last: int = LAS
     for index, end in enumerate(ends, 1):
         log_path = os.path.join(out_dir, f"process{index}.log")
         cmd = [sys.executable, os.path.abspath(__file__), "--process", run_dir, conf_file,
-               str(end), platform, str(index), unroll_at]
+               str(end), platform, str(index), unroll_at, recipe]
         with open(log_path, "w") as log:
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                     text=True, cwd=ROOT)
@@ -645,17 +743,21 @@ def main(recipe: str = "gaz", run_dir: str = "", first: int = 1, last: int = LAS
         "resume_lines": resumes, "analysis_skipped": analysis_skipped, "matches": wld,
         "seconds": time.perf_counter() - t0,
         "device": card() if not cpu else "cpu"}), flush=True)
-    if recipe == "gmz" and not cpu:
-        weak = {k: wld[k] for k in ("a", "b") if wld[k][0] < MIN_WINS}
+    if not cpu:
+        # the gates of the matches this run played (a run shorter than a
+        # rung plays no ladder)
+        weak = {k: wld[k] for k, need in MIN_WINS[recipe].items() if k in wld and wld[k][0] < need}
+        weak.update({k: wld[k] for k in MORE_WINS[recipe] if k in wld and wld[k][0] <= wld[k][1]})
         if weak:
-            fail(f"matches {weak}: fewer than {MIN_WINS} wins of {MATCH_GAMES}")
+            fail(f"matches {weak}: fewer wins of {MATCH_GAMES} than {MIN_WINS[recipe]}, or "
+                 f"no more wins than losses in {MORE_WINS[recipe]}")
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--process"]:
-        d, conf, end, plat, idx, unroll = sys.argv[2:8]
+        d, conf, end, plat, idx, unroll, name = sys.argv[2:9]
         run_process(d, conf, int(end), plat, int(idx),
-                    unroll_at={int(i) for i in unroll.split(",") if i})
+                    unroll_at={int(i) for i in unroll.split(",") if i}, recipe=name)
     else:
         args = [a for a in sys.argv[1:] if a != "cpu"]
         name = args.pop(0) if args[:1] and args[0] in RECIPES else "gaz"

@@ -86,10 +86,13 @@ def test_init_network_is_seeded_and_torch_default():
 
 
 # the trained nets the port reads from ``minizero_tpu_torch/assets/``: the az
-# n=200 run's last checkpoint, and the Gumbel AlphaZero run's (the reference
-# recipe, ``runs/go9_gaz_full``) iterations 0 and 25
+# n=200 run's last checkpoint and its steps 0 and 3,125 (the plain AlphaZero
+# recipe), and the Gumbel AlphaZero run's (the reference recipe,
+# ``runs/go9_gaz_full``) iterations 0 and 25
 TRAINED_ASSETS = {
     "go9_az200_r3b_iter25000": ("go9_az200_r3b/model/weight_iter_25000.ckpt", "az", 200),
+    "go9_az200_r3b_iter0": ("go9_az200_r3b/model/weight_iter_0.ckpt", "az", 200),
+    "go9_az200_r3b_iter3125": ("go9_az200_r3b/model/weight_iter_3125.ckpt", "az", 200),
     "go9_gaz_full_iter0": ("go9_gaz_full/model/weight_iter_0.ckpt", "gaz", 16),
     "go9_gaz_full_iter12500": ("go9_gaz_full/model/weight_iter_12500.ckpt", "gaz", 16),
     "go9_gmz_r4_iter0": ("go9_gmz_r4/model/weight_iter_0.ckpt", "gmz", 16),

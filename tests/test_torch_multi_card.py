@@ -8,6 +8,10 @@ cards, on the CPU.
   (``minizero_tpu.parallel.mesh.make_mesh(4)``) after 3 chained steps from
   the same carried weights: parameters, running statistics, momentum and
   metrics within 1e-5, the four ranks bitwise equal;
+- the same two dp-4 steps and the plain step in float64 (the networks cast
+  to float64), 10 chained steps from the same carried state on the same
+  batches: within 1e-10 of each other, where the float32 steps of the same
+  run move apart by order of summation alone (within 1e-5);
 - with ``torch.cuda`` patched to four cards: ``local_device`` gives
   ``cuda:r`` for ``LOCAL_RANK=r``, ``init_distributed`` sets that card
   before it joins NCCL, ``-mode zero -multi_device`` without a launcher
@@ -34,6 +38,9 @@ from minizero_tpu.parallel.mesh import make_mesh as jmake_mesh
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_distributed import _gloo_jobs  # noqa: E402
 from test_torch_train import CASES, SMALL, _Pair  # noqa: E402
+
+from minizero_tpu_torch.learner.train import init_train_state, make_train_step  # noqa: E402
+from minizero_tpu_torch.models.factory import create_network  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ATOL = 1e-5
@@ -86,6 +93,15 @@ torch.save(out, sys.argv[5])
 dist.destroy_process_group()
 print(f"RANK_{rank}_DONE", flush=True)
 """
+
+
+# the float64 steps: the same worker with the network cast to float64
+# before the carried state is loaded into it (the casts keep the values)
+F64_STEPS = 10
+F64_ATOL = 1e-10
+_F64_STEPS_WORKER = _STEPS_WORKER.replace('net.load_state_dict(job["model"])',
+                                          'net.to(job["dtype"]).load_state_dict(job["model"])')
+assert _F64_STEPS_WORKER != _STEPS_WORKER
 
 
 def _close(got, want, what, counts=True):
@@ -272,3 +288,77 @@ def test_python_m_multi_device_spawns_ranks_that_find_their_entry(tmp_path):
     assert got["nprocs"] == 4 and got["argv"][:3] == ["-mode", "zero", "-multi_device"], got
     assert got["module"] != "__main__", got
     assert callable(getattr(importlib.import_module(got["module"]), got["name"]))
+
+
+def _max_gap(got, want):
+    """The largest absolute difference over a dict of tensors."""
+    return max(float((got[k].double() - want[k].double()).abs().max()) for k in want
+               if not k.endswith("num_batches_tracked"))
+
+
+@pytest.fixture(scope="module")
+def dp4_f64_steps(tmp_path_factory):
+    """For each case, in float64 and in float32: the port's plain steps,
+    ``F64_STEPS`` of them from the state carried over from JAX, and the
+    four gloo ranks' dp-4 steps from the same state on the same batches and
+    rotations."""
+    cases, jobs = {}, []
+    rng = np.random.default_rng(13)
+    for name, (env_name, over, b, value_size) in STEP_CASES.items():
+        pair = _Pair(env_name, over, value_size=value_size, seed=5)
+        pair.sync()
+        carried = {"model": {k: v.clone() for k, v in pair.tnet.state_dict().items()},
+                   "optimizer": copy.deepcopy(pair.tstate.optimizer.state_dict()),
+                   "step": pair.tstate.step}
+        k = pair.tcfg.learner_muzero_unrolling_step
+        batches = [pair.batch(rng, b, k)[0] for _ in range(F64_STEPS)]
+        rotations = [rng.integers(0, pair.tenv.num_rotations(), b) for _ in range(F64_STEPS)]
+        for dtype in (torch.float64, torch.float32):
+            net = create_network(pair.tcfg, pair.spec).to(dtype)
+            net.load_state_dict(carried["model"])
+            state = init_train_state(pair.tcfg, net)
+            # a float32 optimizer loads the carried buffers without a copy
+            state.optimizer.load_state_dict(copy.deepcopy(carried["optimizer"]))
+            state.step = carried["step"]
+            step = make_train_step(pair.tcfg, pair.tenv, net)
+            metrics = [step(state, batch, rotations=torch.as_tensor(rots))
+                       for batch, rots in zip(batches, rotations)]
+            assert next(net.parameters()).dtype == metrics[-1]["loss"].dtype == dtype
+            params = dict(net.named_parameters())
+            cases[name, dtype] = {
+                "model": net.state_dict(), "metrics": metrics,
+                "momentum": {n: state.optimizer.state[p]["momentum_buffer"]
+                             for n, p in params.items()}}
+            jobs.append({"env": env_name, "over": over, "dtype": dtype, **carried,
+                         "batches": batches, "rotations": rotations})
+    ranks = _gloo_jobs(tmp_path_factory.mktemp("dp4_f64"), jobs, WORLD, _F64_STEPS_WORKER)
+    return cases, ranks
+
+
+@pytest.mark.parametrize("case", sorted(STEP_CASES))
+def test_dp4_train_steps_equal_one_process_in_float64(dp4_f64_steps, case):
+    """C11: after 10 steps the float32 dp-4 step and the plain one differ
+    by float32's order of summation (the value head's one-channel
+    BatchNorm grows a difference a few times a step), here within ATOL;
+    in float64 the two agree to 1e-10, so the steps compute the same
+    function."""
+    cases, ranks = dp4_f64_steps
+    gaps = {}
+    for i, dtype in enumerate((torch.float64, torch.float32)):
+        j = 2 * list(STEP_CASES).index(case) + i
+        want, got = cases[case, dtype], ranks[0][j]
+        for r in range(1, WORLD):
+            assert torch.equal(ranks[r][j]["flat"], got["flat"]), f"{case}: rank {r}"
+        assert got["flat"].dtype == dtype
+        metrics = max(abs(float(g[key]) - float(w[key]))
+                      for g, w in zip(got["metrics"], want["metrics"]) for key in w
+                      if w[key].dim() == 0)
+        gaps[dtype] = {"model": _max_gap(got["model"], want["model"]),
+                       "momentum": _max_gap(got["momentum"], want["momentum"]),
+                       "metrics": metrics}
+    print(f"C11 {case}: {F64_STEPS} dp-4 steps against the plain step, largest gaps: "
+          f"float64 {gaps[torch.float64]}, float32 {gaps[torch.float32]}")
+    for what, gap in gaps[torch.float64].items():
+        assert gap <= F64_ATOL, f"{case}: float64 {what} differ by {gap}"
+    for what, gap in gaps[torch.float32].items():
+        assert gap <= ATOL, f"{case}: float32 {what} differ by {gap}"

@@ -1,25 +1,30 @@
 """The reference training recipes on the port (``scripts/zero_recipe_torch.py``:
-``gaz``, the JAX run ``runs/go9_gaz_full``, and ``gmz``, ``runs/go9_gmz_r4``),
-held against the JAX package on the CPU, each case for both recipes.
+``gaz``, the JAX run ``runs/go9_gaz_full``; ``gmz``, ``runs/go9_gmz_r4``;
+``az``, ``runs/go9_az200_r3b``), held against the JAX package on the CPU,
+each case for every recipe.
 
 * The script's config is the JAX run's (``runs/go9_gaz_full.cfg``; the
-  ``config`` entry of ``runs/go9_gmz_r4/model/weight_iter_12500.ckpt``) as
-  both packages parse it, but for the iterations it runs.
-* The JAX run's step-0 and step-12,500 nets, exported to
-  ``minizero_tpu_torch/assets/``, play the first plies of ``play_match``
-  on the port as the JAX engine plays them (``gmz`` after the ladder's 4
-  uniform opening plies): float32, rotation off, root visits and actions
-  exact, the root children's Q within 2e-4 and the root value within 1e-4
-  (``docs/Parity.md``), completed-Q targets within 2e-3.
+  ``config`` entry of ``runs/go9_gmz_r4/model/weight_iter_12500.ckpt`` and
+  of ``runs/go9_az200_r3b/model/weight_iter_3125.ckpt``) as both packages
+  parse it, but for the iterations it runs.
+* The JAX run's step-0 and newest exported nets (step 12,500; ``az``
+  3,125), exported to ``minizero_tpu_torch/assets/``, play the first plies
+  of ``play_match`` on the port as the JAX engine plays them (``gmz`` after
+  the ladder's 4 uniform opening plies; ``az`` at 47 simulations, where
+  both engines search on the packed trees): float32, rotation off, root
+  visits and actions exact, the root children's Q within 2e-4 and the root
+  value within 1e-4 (``docs/Parity.md``), completed-Q targets within 2e-3.
 * A run of the CLI's ``-mode zero`` to iteration 2 and a second call to
-  iteration 4 (TicTacToe, a window of 2 iterations; AlphaZero, and Gumbel
-  MuZero with K=5): after each iteration the window holds the games of the
+  iteration 4 (TicTacToe, a window of 2 iterations; AlphaZero, Gumbel
+  MuZero with K=5, and AlphaZero with the az recipe's Dirichlet noise,
+  softmax-count actions and resignation): after each iteration the window holds the games of the
   last two iterations' record files, as a JAX ``ReplayBuffer`` fed the
   same records holds them; the second call reloads iterations 1-2 with the
   feature planes self-play stored (the policy targets as the record parser
   renormalizes them), and the network, optimizer state and step the first
   call ended with.
-* The script's CPU form prints its lines.
+* The script's CPU form prints its lines (``az`` on the packed trees: B2's
+  and B3's plain versions).
 * The script's ``unroll_check`` on a window with evicted games and games
   shorter than K: the flat caches' ``sample_muzero`` equals the per-record
   branch's and the JAX buffer's, and a stale cache fails the check.
@@ -66,8 +71,12 @@ from torch_threads import one_torch_thread  # noqa: E402,F401
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(ROOT, "scripts", "zero_recipe_torch.py")
 RUNS = {"gaz": os.path.join(ROOT, "runs", "go9_gaz_full"),
-        "gmz": os.path.join(ROOT, "runs", "go9_gmz_r4")}
+        "gmz": os.path.join(ROOT, "runs", "go9_gmz_r4"),
+        "az": os.path.join(ROOT, "runs", "go9_az200_r3b")}
 RECIPES = sorted(RUNS)
+# play_match's case: (games, plies a round, simulations); az at 47, the
+# fewest that take the packed trees, over 2 games of 2 plies
+PLAY = {"gaz": (4, 6, None), "gmz": (4, 6, None), "az": (2, 2, 47)}
 
 
 def _script():
@@ -78,10 +87,12 @@ def _script():
 
 
 def _jax_run_config(recipe):
-    """The JAX run's config text: gaz's ``.cfg``; gmz's checkpoint entry."""
+    """The JAX run's config text: gaz's ``.cfg``; the others' entry in the
+    checkpoint of the newest exported step."""
     if recipe == "gaz":
         return open(RUNS[recipe] + ".cfg").read()
-    with open(os.path.join(RUNS[recipe], "model", "weight_iter_12500.ckpt"), "rb") as f:
+    step = _script().JAX_STEP[recipe]
+    with open(os.path.join(RUNS[recipe], "model", f"weight_iter_{step}.ckpt"), "rb") as f:
         return pickle.load(f)["config"]
 
 
@@ -96,12 +107,13 @@ def test_recipe_config_is_the_jax_runs(recipe):
     assert fields == set(vars(ours)) == set(vars(jax_))
     for key in sorted(fields - runs_own):
         assert getattr(ours, key) == getattr(port, key) == getattr(jax_, key), key
-    # the JAX runs were resumed at iterations 10 and 8; the script starts
-    # at 0 and passes its end on the command line
-    assert (ours.zero_start_iteration, ours.zero_end_iteration) == (0, {"gaz": 100,
-                                                                      "gmz": 50}[recipe])
-    assert jax_.zero_start_iteration == {"gaz": 10, "gmz": 8}[recipe]
-    assert ours.nn_type_name == {"gaz": "alphazero", "gmz": "muzero"}[recipe]
+    # the JAX runs were resumed at iterations 10, 8 and 25; the script
+    # starts at 0 and passes its end on the command line
+    assert (ours.zero_start_iteration, ours.zero_end_iteration) == (0, {"gaz": 100, "gmz": 50,
+                                                                      "az": 50}[recipe])
+    assert jax_.zero_start_iteration == {"gaz": 10, "gmz": 8, "az": 25}[recipe]
+    assert ours.nn_type_name == {"gaz": "alphazero", "gmz": "muzero", "az": "alphazero"}[recipe]
+    assert ours.use_gumbel == (recipe != "az")
 
 
 def _root_children(visits, mean, cidx):
@@ -115,19 +127,25 @@ def _root_children(visits, mean, cidx):
 def test_exported_nets_play_the_jax_plies_through_play_match(recipe, monkeypatch):
     """The port's ``play_match`` (4 games, 6 plies a round, the JAX run's
     step-12,500 net as A against its step-0 net; gmz after the ladder's 4
-    uniform opening plies) and the JAX engine driven as its synchronized
-    match drives it: the same searches, ply by ply, in both colour
-    rounds, from the openings the port drew."""
+    uniform opening plies; az 2 games, 2 plies a round, step 3,125 against
+    step 0 at 47 simulations on the packed trees) and the JAX engine
+    driven as its synchronized match drives it: the same searches, ply by
+    ply, in both colour rounds, from the openings the port drew."""
     script = _script()
+    games, plies, sims = PLAY[recipe]
+    top = script.JAX_STEP[recipe]
     cfg = script.recipe_config(recipe=recipe).replace(actor_use_random_rotation_features=False,
-                                                      zero_num_parallel_games=4)
+                                                      zero_num_parallel_games=games)
+    if sims:
+        cfg = cfg.replace(actor_num_simulation=sims)
+    packed = recipe == "az"
     opening = script.OPENING_PLIES[recipe]
     jcfg = j_default("go").load_string(cfg.to_string(), sep="\n")
     assert jcfg.to_string() == cfg.to_string()
     spec = make_env(cfg).spec
     convert = from_jax_muzero_variables if recipe == "gmz" else from_jax_variables
     nets = {}
-    for step in (12500, 0):
+    for step in (top, 0):
         nets[step] = create_network(cfg, spec)
         nets[step].load_state_dict(convert(load_variables_npz(script.jax_net_path(recipe, step)),
                                            hidden_hw=81))
@@ -138,6 +156,7 @@ def test_exported_nets_play_the_jax_plies_through_play_match(recipe, monkeypatch
             super().__init__(*args, **{**kwargs, "use_bf16": False})
             assert not self.spec.use_gumbel_noise and not self.use_rotation
             assert self.is_muzero == (recipe == "gmz")
+            assert self.use_tree_kernel_v2 == packed
 
         def _search(self, states, turns, feats, generator):
             trees = super()._search(states, turns, feats, generator)
@@ -165,12 +184,12 @@ def test_exported_nets_play_the_jax_plies_through_play_match(recipe, monkeypatch
             openings.append(taken)
 
     monkeypatch.setattr(tmatch, "SelfPlayEngine", Recording)
-    monkeypatch.setattr(tmatch, "PLIES_PER_CHECK", 6)
+    monkeypatch.setattr(tmatch, "PLIES_PER_CHECK", plies)
     monkeypatch.setattr(tmatch, "_random_openings", recorded_openings)
-    r = tmatch.play_match(cfg, nets[12500], nets[0], num_games=4, seed=1001, max_moves=6,
+    r = tmatch.play_match(cfg, nets[top], nets[0], num_games=games, seed=1001, max_moves=plies,
                           opening_random_plies=opening, device="cpu")
-    assert (r.p1_wins, r.p2_wins, r.draws) == (0, 0, 4)  # no game ends in 6 plies
-    assert len(searches) == len(decisions) == 12
+    assert (r.p1_wins, r.p2_wins, r.draws) == (0, 0, games)  # no game ends so soon
+    assert len(searches) == len(decisions) == 2 * plies
     assert len(openings) == (2 if opening else 0)
     if opening:
         # both colour rounds start from the same openings, distinct games
@@ -182,18 +201,19 @@ def test_exported_nets_play_the_jax_plies_through_play_match(recipe, monkeypatch
     jnet = j_create_network(jcfg, jenv.spec)
     jvars = {step: j_load_checkpoint(os.path.join(RUNS[recipe], "model",
                                                   f"weight_iter_{step}.ckpt"),
-                                     jcfg, jnet, jenv.spec) for step in (12500, 0)}
+                                     jcfg, jnet, jenv.spec) for step in (top, 0)}
     jeng = JEngine(jenv, jcfg, jnet, eval_mode=True, use_bf16=False)
     assert not jeng.spec.use_gumbel_noise and jeng.is_muzero == (recipe == "gmz")
+    assert jeng.use_tree_kernel_v2 == packed
     jstep = jax.vmap(jenv.step)
     ply_searches = iter(zip(searches, decisions))
     # A plays Player 1 in the first round, Player 2 in the second; after
     # an even number of opening plies Player 1 moves first
-    for round_, movers in enumerate(((12500, 0), (0, 12500))):
-        js = jax_batch(jenv, 4)
+    for round_, movers in enumerate(((top, 0), (0, top))):
+        js = jax_batch(jenv, games)
         for actions in (openings[round_] if opening else ()):
             js = jstep(js, jnp.asarray(actions))
-        for ply in range(6):
+        for ply in range(plies):
             step = movers[ply % 2]
             (net, states, trees), (action, target, root, _) = next(ply_searches)
             where = f"round {movers}, ply {ply}"
@@ -218,10 +238,19 @@ def test_exported_nets_play_the_jax_plies_through_play_match(recipe, monkeypatch
             js = jstep(js, jaction)
 
 
+# the az recipe's self-play settings that the AlphaZero defaults lack
+AZ_ACTOR = ("actor_use_dirichlet_noise", "actor_dirichlet_noise_alpha",
+            "actor_dirichlet_noise_epsilon", "actor_select_action_by_softmax_count",
+            "actor_resign_threshold", "zero_disable_resign_ratio")
+
+
 def _tiny(recipe="gaz"):
-    # gaz: the AlphaZero loop; gmz: Gumbel MuZero with K=5 unroll steps
-    algo = {} if recipe == "gaz" else dict(algorithm_preset("gmz"), actor_gumbel_sample_size=8,
-                                            learner_muzero_unrolling_step=5)
+    # gaz: the AlphaZero loop; gmz: Gumbel MuZero with K=5 unroll steps; az:
+    # the az recipe's root noise, softmax-count actions and resignation
+    algo = {"gaz": {},
+            "gmz": dict(algorithm_preset("gmz"), actor_gumbel_sample_size=8,
+                        learner_muzero_unrolling_step=5),
+            "az": {k: _script().RECIPE_AZ[k] for k in AZ_ACTOR}}[recipe]
     return {**algo, **dict(
         env_name="tictactoe", nn_num_blocks=1, nn_num_hidden_channels=8,
         nn_num_value_hidden_channels=8, actor_num_simulation=8, learner_batch_size=16,
@@ -323,8 +352,9 @@ def test_the_script_prints_its_lines_on_the_cpu(recipe, tmp_path):
     (resumed,) = [ln for ln in lines if ln.get("resumed_iteration") == 1]
     assert resumed["resume_games"] == 4 and resumed["games_equal"] and resumed["state_equal"]
     assert ("unroll" in resumed) == (recipe == "gmz")
-    ladder = ["r1", "r2"] if recipe == "gmz" else []
-    assert [ln["match"] for ln in lines if "match" in ln] == ladder + ["a", "b"]
+    ladder = ["r1", "r2"] if recipe != "gaz" else []
+    port_pair = ["b"] if recipe != "az" else []
+    assert [ln["match"] for ln in lines if "match" in ln] == ladder + ["a"] + port_pair
     summary = lines[-1]
     assert summary["step"] == 8 and summary["device"] == "cpu" and summary["recipe"] == recipe
     assert summary["resume_lines"] == ["[Resume] iteration 1, 4 games reloaded"]
