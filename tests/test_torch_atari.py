@@ -193,6 +193,50 @@ def test_host_engine_moves_match_jax():
     assert (fused_tree_step.launches, fused_tree_step.launches_rewards) == before
 
 
+def test_first_moves_follow_the_nets_action_preference():
+    """FakeALE pays an action's parity, so an iteration's returns count its
+    odd actions. A seeded net already prefers some actions (the min-max
+    rescaled Q turns a small preference into a large one), so the first
+    iteration's returns follow the initial net. Through the port's host
+    engine at the Atari recipe's search and full width (float32, 16 games,
+    10 moves): the port's seeded init (``init_network``, seed 0) plays odd
+    actions on well over half of the moves; the JAX run
+    ``runs/atari_gmz_r5_b128``'s own step-0 net, carried over, on about
+    half, as that run's iteration 1 did (mean return 435.66 of 860); its
+    step-6,000 net on nearly all."""
+    import pickle
+
+    from minizero_tpu.eval.match import load_checkpoint_variables
+    from minizero_tpu.models.factory import create_network as j_create_network
+    from minizero_tpu_torch.models.factory import create_network, init_network
+    from minizero_tpu_torch.weights import from_jax_muzero_variables
+
+    run = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "runs",
+                       "atari_gmz_r5_b128", "model")
+    with open(os.path.join(run, "weight_iter_6000.ckpt"), "rb") as f:
+        text = pickle.load(f)["config"]
+    cfg = default_config("atari").load_string(text, sep="\n")
+    jcfg = j_default("atari").load_string(text, sep="\n")
+    jnet = j_create_network(jcfg, jatari.atari_spec())
+
+    def odd_share(net):
+        vec = atari.AtariVecEnv(16, seed=0, ale_factory=_fake(900))
+        eng = HostSelfPlayEngine(vec, cfg.replace(zero_num_parallel_games=16), net,
+                                 device="cpu", use_bf16=False, seed=0)
+        return float(np.mean([eng.move(1.0).action % 2 for _ in range(10)]))
+
+    def jax_net(step):
+        variables = load_checkpoint_variables(os.path.join(run, f"weight_iter_{step}.ckpt"),
+                                              jcfg, jnet, jatari.atari_spec())
+        net = create_network(cfg, atari.atari_spec())
+        net.load_state_dict(from_jax_muzero_variables(jax.device_get(variables), hidden_hw=36))
+        return net
+
+    assert odd_share(init_network(create_network(cfg, atari.atari_spec()), seed=0)) > 0.6
+    assert 0.4 < odd_share(jax_net(0)) < 0.6
+    assert odd_share(jax_net(6000)) > 0.95
+
+
 def test_ring_stacks_equal_the_vec_env_bytes():
     """Before every move, across resets: the ring holds
     ``AtariVecEnv.features_u8``'s RGB bytes, and the search stack's action

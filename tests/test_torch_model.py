@@ -163,3 +163,57 @@ def test_trained_az200_weights_match_the_jax_checkpoint(asset):
             value = g[key].permute(0, 2, 3, 1) if key == "hidden_state" else g[key]
             np.testing.assert_allclose(value.numpy(), np.asarray(w[key]), rtol=0, atol=ATOL,
                                        err_msg=f"{key}, step {step}")
+
+
+def test_trained_atari_net_matches_the_jax_checkpoint():
+    """The JAX Atari Gumbel MuZero run's last net
+    (``runs/atari_gmz_r5_b128/model/weight_iter_6000.ckpt``, 1 x 256, the
+    601-bin value and reward heads), read from its ``.ckpt`` and carried
+    over by ``from_jax_muzero_variables`` with no export: the initial
+    inference on FakeALE stacks and one recurrent inference step on random
+    actions match the JAX net's within 1e-4, the hidden states too."""
+    import os
+    import pickle
+
+    from minizero_tpu.config import default_config as jdefault
+    from minizero_tpu.envs.atari import atari_spec as jatari_spec
+    from minizero_tpu.eval.match import load_checkpoint_variables
+    from minizero_tpu.models.factory import create_network as jcreate
+    from minizero_tpu_torch.envs import atari
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ckpt = os.path.join(root, "runs", "atari_gmz_r5_b128", "model", "weight_iter_6000.ckpt")
+    with open(ckpt, "rb") as f:
+        text = pickle.load(f)["config"]
+    jcfg = jdefault("atari").load_string(text, sep="\n")
+    jnet = jcreate(jcfg, jatari_spec())
+    variables = load_checkpoint_variables(ckpt, jcfg, jnet, jatari_spec())
+
+    cfg = default_config("atari").load_string(text, sep="\n")
+    spec = atari.atari_spec()
+    net = create_network(cfg, spec)
+    net.load_state_dict(from_jax_muzero_variables(jax.device_get(variables), hidden_hw=36))
+    net.eval()
+    # the stacks of 4 FakeALE episodes 12 moves in, random actions
+    vec = atari.AtariVecEnv(4, seed=5, ale_factory=lambda s: atari.FakeALE(seed=s, length=900))
+    rng = np.random.default_rng(27)
+    for _ in range(12):
+        vec.step(rng.integers(0, 4, 4))
+    feats = vec.features()
+    want0 = jnet.apply(variables, jnp.asarray(feats), train=False, method=jnet.initial_inference)
+    actions = rng.integers(0, 18, 4).astype(np.int32)
+    planes = atari.action_features(torch.from_numpy(actions), spec)
+    want1 = jnet.apply(variables, want0["hidden_state"],
+                       jnp.asarray(planes.permute(0, 2, 3, 1).numpy()), train=False,
+                       method=jnet.recurrent_inference)
+    with torch.no_grad():
+        got0 = net.initial_inference(torch.from_numpy(feats))
+        got1 = net.recurrent_inference(
+            torch.from_numpy(np.array(want0["hidden_state"])).permute(0, 3, 1, 2), planes)
+    for what, got, want in (("initial", got0, want0), ("recurrent", got1, want1)):
+        assert sorted(got) == sorted(want), what
+        for key in want:
+            g = got[key].permute(0, 2, 3, 1) if key == "hidden_state" else got[key]
+            np.testing.assert_allclose(g.numpy(), np.asarray(want[key]), rtol=0, atol=ATOL,
+                                       err_msg=f"{what} inference: {key}")
+    assert "reward" in got1

@@ -1,11 +1,13 @@
 """The reference training recipes on the port (``scripts/zero_recipe_torch.py``:
 ``gaz``, the JAX run ``runs/go9_gaz_full``; ``gmz``, ``runs/go9_gmz_r4``;
-``az``, ``runs/go9_az200_r3b``), held against the JAX package on the CPU,
-each case for every recipe.
+``az``, ``runs/go9_az200_r3b``; ``atari``, ``runs/atari_gmz_r5_b128``),
+held against the JAX package on the CPU, each case for every recipe it
+applies to (``atari`` plays no match and runs no CLI).
 
 * The script's config is the JAX run's (``runs/go9_gaz_full.cfg``; the
-  ``config`` entry of ``runs/go9_gmz_r4/model/weight_iter_12500.ckpt`` and
-  of ``runs/go9_az200_r3b/model/weight_iter_3125.ckpt``) as both packages
+  ``config`` entry of ``runs/go9_gmz_r4/model/weight_iter_12500.ckpt``,
+  of ``runs/go9_az200_r3b/model/weight_iter_3125.ckpt`` and of
+  ``runs/atari_gmz_r5_b128/model/weight_iter_6000.ckpt``) as both packages
   parse it, but for the iterations it runs.
 * The JAX run's step-0 and newest exported nets (step 12,500; ``az``
   3,125), exported to ``minizero_tpu_torch/assets/``, play the first plies
@@ -24,13 +26,17 @@ each case for every recipe.
   renormalizes them), and the network, optimizer state and step the first
   call ended with.
 * The script's CPU form prints its lines (``az`` on the packed trees: B2's
-  and B3's plain versions).
+  and B3's plain versions; ``atari`` over FakeALE with a resume and a
+  frame window that wraps).
+* The JAX Atari run's figures the script copies are its ``Training.log``'s,
+  and a reloaded Atari window carries the JAX buffer's PER priorities.
 * The script's ``unroll_check`` on a window with evicted games and games
   shorter than K: the flat caches' ``sample_muzero`` equals the per-record
   branch's and the JAX buffer's, and a stale cache fails the check.
 """
 
 import copy
+import dataclasses
 import importlib.util
 import json
 import os
@@ -72,8 +78,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(ROOT, "scripts", "zero_recipe_torch.py")
 RUNS = {"gaz": os.path.join(ROOT, "runs", "go9_gaz_full"),
         "gmz": os.path.join(ROOT, "runs", "go9_gmz_r4"),
-        "az": os.path.join(ROOT, "runs", "go9_az200_r3b")}
-RECIPES = sorted(RUNS)
+        "az": os.path.join(ROOT, "runs", "go9_az200_r3b"),
+        "atari": os.path.join(ROOT, "runs", "atari_gmz_r5_b128")}
+RECIPES = ["az", "gaz", "gmz"]  # the Go recipes, each through the CLI and matches
+ALL_RECIPES = RECIPES + ["atari"]
 # play_match's case: (games, plies a round, simulations); az at 47, the
 # fewest that take the packed trees, over 2 games of 2 plies
 PLAY = {"gaz": (4, 6, None), "gmz": (4, 6, None), "az": (2, 2, 47)}
@@ -96,23 +104,26 @@ def _jax_run_config(recipe):
         return pickle.load(f)["config"]
 
 
-@pytest.mark.parametrize("recipe", RECIPES)
+@pytest.mark.parametrize("recipe", ALL_RECIPES)
 def test_recipe_config_is_the_jax_runs(recipe):
     text = _jax_run_config(recipe)
     ours = _script().recipe_config(recipe=recipe)
-    port, jax_ = (default_config("go").load_string(text, sep="\n"),
-                  j_default("go").load_string(text, sep="\n"))
+    env = "atari" if recipe == "atari" else "go"
+    port, jax_ = (default_config(env).load_string(text, sep="\n"),
+                  j_default(env).load_string(text, sep="\n"))
     runs_own = {"zero_start_iteration", "zero_end_iteration"}
     fields = set(vars(port)) | set(vars(jax_)) | set(vars(ours))
     assert fields == set(vars(ours)) == set(vars(jax_))
     for key in sorted(fields - runs_own):
         assert getattr(ours, key) == getattr(port, key) == getattr(jax_, key), key
-    # the JAX runs were resumed at iterations 10, 8 and 25; the script
-    # starts at 0 and passes its end on the command line
-    assert (ours.zero_start_iteration, ours.zero_end_iteration) == (0, {"gaz": 100, "gmz": 50,
-                                                                      "az": 50}[recipe])
-    assert jax_.zero_start_iteration == {"gaz": 10, "gmz": 8, "az": 25}[recipe]
-    assert ours.nn_type_name == {"gaz": "alphazero", "gmz": "muzero", "az": "alphazero"}[recipe]
+    # the JAX runs were resumed at iterations 10, 8, 25 and 30; the script
+    # starts at 0 and passes its end on the command line (atari: 31, the
+    # JAX run's last, and 30 to every process but the last)
+    assert (ours.zero_start_iteration, ours.zero_end_iteration) == (0, {
+        "gaz": 100, "gmz": 50, "az": 50, "atari": 31}[recipe])
+    assert jax_.zero_start_iteration == {"gaz": 10, "gmz": 8, "az": 25, "atari": 30}[recipe]
+    assert ours.nn_type_name == {"gaz": "alphazero", "gmz": "muzero", "az": "alphazero",
+                                 "atari": "muzero"}[recipe]
     assert ours.use_gumbel == (recipe != "az")
 
 
@@ -327,13 +338,45 @@ def test_window_and_state_survive_a_resume_across_cli_calls(recipe, tmp_path, mo
     assert log.count("[Resume] iteration 2, 16 games reloaded") == 1
 
 
-@pytest.mark.parametrize("recipe", RECIPES)
+def _atari_lines(lines):
+    """The atari CPU form: iterations 1-2, a resume, 3-4; FakeALE episodes
+    of 64 moves in chunks of 32 (a first chunk of 36 positions, then the
+    episode's last 32, with 8 lead frames) and a window of one iteration,
+    whose 300 frame rows wrap in the second iteration of each process."""
+    iterations = [ln for ln in lines if "iteration" in ln]
+    assert [ln["iteration"] for ln in iterations] == [1, 2, 3, 4]
+    for ln, length, temperature in zip(iterations, (36, 32, 36, 32), (1.0, 0.5, 0.25, 0.25)):
+        assert ln["games"] == ln["buffer_games"] == 4
+        assert ln["length_min"] == ln["length_max"] == length
+        assert ln["moves"] == {36: 36, 32: 28}[length] and ln["temperature"] == temperature
+        assert np.isfinite(list(ln["losses"].values())).all() and ln["losses"]["loss_reward"] > 0
+        assert ln["wrapped"] == (ln["iteration"] in (2, 4)) and "jax" not in ln
+        assert 0 < ln["window_cursor"] < ln["window_rows"] == 300
+        # after each wrap (and the last iteration) every sampled stack has
+        # its record's 8 lead frames: the window holds the terminal chunks
+        assert (ln.get("stacks") == {"stacks": 32, "with_lead": 32}) == ln["wrapped"]
+    (resumed,) = [ln for ln in lines if ln.get("resumed_iteration") == 2]
+    assert resumed["resume_games"] == 4 and resumed["games_equal"] and resumed["state_equal"]
+    # the reloaded terminal chunks come back without their lead frames
+    assert resumed["leads_dropped"] == 4
+    assert resumed["stacks"] == {"stacks": 32, "with_lead": 0}
+    summary = lines[-1]
+    assert summary["step"] == 8 and summary["device"] == "cpu" and summary["recipe"] == "atari"
+    assert summary["resume_lines"] == ["[Resume] iteration 2, 4 games reloaded"]
+    assert summary["wraps"] == [2, 4] and summary["gates_failed"] == {}
+    assert summary["resume_games"] == [0, 4] and len(summary["process_s"]) == 2
+    assert not any("match" in ln for ln in lines)
+
+
+@pytest.mark.parametrize("recipe", ALL_RECIPES)
 def test_the_script_prints_its_lines_on_the_cpu(recipe, tmp_path):
     env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, SCRIPT, recipe, str(tmp_path / "run"), "cpu"],
                          capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     lines = [json.loads(ln) for ln in out.stdout.splitlines()]
+    if recipe == "atari":
+        return _atari_lines(lines)
     iterations = [ln for ln in lines if "iteration" in ln]
     assert [ln["iteration"] for ln in iterations] == [1, 2]
     for ln in iterations:
@@ -445,3 +488,97 @@ def test_a_reload_renormalizes_policy_rows_as_the_jax_parser_does():
     step = np.abs(got.astype(np.float32) - policy.astype(np.float32)).max(1)[moved]
     ulp = np.spacing(np.maximum(got, policy).astype(np.float16)).astype(np.float32).max(1)[moved]
     assert (step <= ulp).all()
+
+
+def test_the_atari_figures_are_the_jax_runs_training_log():
+    """The JAX run's figures that the atari recipe copies (``JAX_ATARI``:
+    each iteration's record length and returns as last logged;
+    ``JAX_ATARI_RESUMES``) are those of its ``Training.log``, and the
+    chunking rule (``atari_lengths``) over the recipe's four processes
+    gives its lengths."""
+    script = _script()
+    figures, resumes, it = {}, set(), None
+    for line in open(os.path.join(RUNS["atari"], "Training.log")):
+        if "[Iteration]" in line:
+            it = int(line.split("[Iteration] ")[1].split(":")[0])
+        elif "[SelfPlay Game Lengths]" in line:
+            lo, hi = (int(line.split(k)[1].split(",")[0]) for k in ("min: ", "max: "))
+            assert lo == hi, line
+        elif "[SelfPlay Game Returns]" in line:
+            figures[it] = (lo,) + tuple(float(line.split(k)[1].split(",")[0])
+                                        for k in ("min: ", "max: ", "avg: "))
+        elif "[Resume]" in line:
+            words = line.split("[Resume] iteration ")[1].split()
+            resumes.add((int(words[0].rstrip(",")), int(words[1])))
+    assert figures == script.JAX_ATARI
+    assert resumes == set(script.JAX_ATARI_RESUMES.items())
+    cfg = script.recipe_config(recipe="atari")
+    ends = script.SPLIT["atari"] + (script.LAST["atari"],)
+    lengths = [n for s, e in zip((1,) + tuple(e + 1 for e in ends[:-1]), ends)
+               for n in script.atari_lengths(cfg, script.FAKE_LENGTH, e - s + 1)]
+    assert lengths == [figures[i][0] for i in range(1, 32)]
+
+
+def test_a_reloaded_atari_window_has_the_jax_packages_priorities(tmp_path):
+    """Two iterations of the port's Atari loop over FakeALE (PER, chunks
+    carried across the iterations), then ``resume`` in a fresh loop, and
+    the JAX loop's resume steps (its parser, its ``unpack_observations``,
+    the LL flags, its ``ReplayBuffer``) over the same record files: the
+    same records, value targets and PER priorities. No record holds a
+    priority: both packages rebuild them from the printed root values, so
+    they differ from self-play's first ones by the printing alone, and the
+    train steps' refreshes are dropped."""
+    from minizero_tpu.envs.atari import atari_spec as j_atari_spec
+    from minizero_tpu.learner.replay import GameRecord as JGameRecord
+    from minizero_tpu.tools.obs import unpack_observations as j_unpack
+    from minizero_tpu_torch.envs.atari import FakeALE
+    from minizero_tpu_torch.learner.replay import ReplayBuffer
+
+    script = _script()
+
+    over = dict(algorithm_preset("gmz", is_atari=True), nn_num_hidden_channels=8,
+                nn_num_value_hidden_channels=8, actor_num_simulation=2,
+                actor_gumbel_sample_size=2, zero_num_parallel_games=2,
+                zero_num_games_per_iteration=2, zero_end_iteration=2, learner_training_step=2,
+                learner_batch_size=4, learner_muzero_unrolling_step=2, learner_n_step_return=2,
+                zero_actor_intermediate_sequence_length=8, program_auto_seed=False)
+    cfg = default_config("atari", **over)
+    run_dir = str(tmp_path / "run")
+    fake = lambda s: FakeALE(seed=s, length=64)  # noqa: E731
+    loop = tloop.ZeroLoop(cfg, run_dir, device="cpu", ale_factory=fake)
+    loop.run()
+    loop.close()
+    added = loop.buffer.games
+    fresh = tloop.ZeroLoop(cfg, run_dir, device="cpu", ale_factory=fake)
+    assert fresh.resume() == 2
+    fresh.close()
+    jcfg = j_default("atari", **over)
+    jbuffer = JReplayBuffer(jcfg, j_atari_spec())
+    for it in (1, 2):
+        for line in open(os.path.join(run_dir, "sgf", f"{it}.sgf")):
+            tags, rec = j_record(line.strip(), 18)
+            rec.features, rec.frames = None, j_unpack(tags["OBS"])
+            rec.lives_lost = np.asarray([c == "1" for c in tags["LL"]], bool)
+            jbuffer.add_game(rec)
+    assert isinstance(jbuffer.games[0], JGameRecord)
+    got = fresh.buffer
+    assert len(got) == len(jbuffer) == len(added) == 4
+    assert any(g.frame_lead for g in added)  # continuation chunks
+    for g, j, a in zip(got.games, jbuffer.games, added):
+        np.testing.assert_array_equal(g.frames, j.frames)
+        np.testing.assert_array_equal(g.frames, a.frames[a.frame_lead:])
+        np.testing.assert_array_equal(g.lives_lost, j.lives_lost)
+        np.testing.assert_array_equal(g.value_targets, j.value_targets)
+        np.testing.assert_array_equal(g.priorities, j.priorities)
+        # self-play's record with its values and rewards as printed
+        printed = dataclasses.replace(a, values=script.as_printed(a.values),
+                                      rewards=script.as_printed(a.rewards), priorities=None,
+                                      value_targets=None)
+        ReplayBuffer(cfg, fresh.env.spec).add_game(printed)
+        np.testing.assert_array_equal(g.priorities, printed.priorities)
+    for mine, theirs in zip(got.position_priorities, jbuffer.position_priorities):
+        np.testing.assert_array_equal(mine, theirs)
+    # the train steps refreshed some of self-play's priorities; the reload
+    # starts from the records' again
+    refreshed = np.concatenate(loop.buffer.position_priorities)
+    assert not np.allclose(refreshed, np.concatenate(got.position_priorities), rtol=1e-3)
